@@ -1,0 +1,108 @@
+"""Fused ConvNeXt block tail: LayerNorm -> pw1 -> GELU -> pw2 -> layer-scale
+-> residual, C -> 4C -> C, on channels-last volumes.
+
+Replaces ``skoots_tpu/kernels/mlp.py::_mlp_call`` (body ``_kernel``). The
+Hopper kernel is ``csrc/mlp.cu``: the [V, 4C] hidden activation never
+reaches device memory, so the two GEMMs bound it (see the source header).
+
+Rounding points of both versions, to the model dtype ``dt`` (identity at
+f32), as at ``mlp.py:78-95`` of the TPU kernel: after the LayerNorm affine
+(f32 statistics, eps 1e-6), after each matmul (f32 accumulation), after each
+bias add, after the exact-erf GELU (computed in f32), after the layer-scale
+multiply and after the residual add. The LN scale/bias, the biases and
+gamma enter as ``dt`` values, as the Pallas kernel receives them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from skoots_tpu_torch.kernels import _build
+
+EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def _rnd(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Round an f32 tensor to ``dt`` and back to f32."""
+    return t.to(dt).float()
+
+
+def fold_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the CUDA kernels' warp order
+    (``csrc/common.cuh::warp_fold_sum``): the 32-wide column blocks added
+    left to right, then halving folds ``s[:h] + s[h:]`` down to one value.
+    Zero padding to a multiple of 32 keeps any width exact."""
+    c = v.shape[-1]
+    if c % 32:
+        v = torch.nn.functional.pad(v, (0, 32 - c % 32))
+    s = v[..., 0:32]
+    for i in range(1, v.shape[-1] // 32):
+        s = s + v[..., 32 * i:32 * (i + 1)]
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s
+
+
+def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    dt: torch.dtype, eps: float = EPS) -> torch.Tensor:
+    """The TPU kernels' row LayerNorm in f32, rounded to ``dt`` (as f32):
+    two-pass variance, every step in the CUDA kernels' order and rounding
+    (``csrc/common.cuh::warp_layer_norm``)."""
+    xf = x.float()
+    c = xf.shape[-1]
+    xc = xf - fold_sum(xf) / c
+    var = fold_sum(xc * xc) / c
+    inv = torch.sqrt(var + eps).reciprocal()
+    return _rnd((xc * inv) * _rnd(scale.float(), dt) + _rnd(bias.float(), dt), dt)
+
+
+def mlp_block_tail_ref(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
+    """Plain PyTorch version on ``[..., C]`` (``x`` the dwconv output,
+    ``shortcut`` the block input); returns x's dtype."""
+    dt = x.dtype
+    h = layer_norm_rows(x, ln_scale, ln_bias, dt)
+    a = _rnd(h @ _rnd(w1.float(), dt), dt)
+    a = _rnd(a + _rnd(b1.float(), dt), dt)
+    a = _rnd(0.5 * a * (1.0 + torch.erf(a * (1.0 / math.sqrt(2.0)))), dt)
+    y = _rnd(a @ _rnd(w2.float(), dt), dt)
+    y = _rnd(y + _rnd(b2.float(), dt), dt)
+    y = _rnd(y * _rnd(gamma.float(), dt), dt)
+    return (shortcut.float() + y).to(dt)
+
+
+def mlp_block_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
+    """Fused block tail: the plain version for a CPU tensor, the CUDA kernel
+    for a CUDA tensor (raises on what the kernel does not take)."""
+    if x.device.type == "cpu":
+        return mlp_block_tail_ref(x, shortcut, ln_scale, ln_bias, w1, b1, w2,
+                                  b2, gamma)
+    _build.require_cuda(x, "mlp_block_tail")
+    c = x.shape[-1]
+    dt = x.dtype
+    if c not in (32, 64, 128) or dt not in _build.DTYPE_CODES or shortcut.dtype != dt:
+        raise ValueError(f"mlp_block_tail: unsupported x {tuple(x.shape)} {dt}")
+    _build.check_operands(
+        "mlp_block_tail", x.device, shortcut=(shortcut, x.shape),
+        ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)), w1=(w1, (c, 4 * c)),
+        b1=(b1, (4 * c,)), w2=(w2, (4 * c, c)), b2=(b2, (c,)), gamma=(gamma, (c,)))
+    x2 = x.contiguous().view(-1, c)
+    s2 = shortcut.contiguous().view(-1, c)
+    vec = [_rnd(t.detach().float(), dt).contiguous()
+           for t in (ln_scale, ln_bias, b1, b2, gamma)]
+    w1c = w1.detach().to(dt).contiguous()
+    w2c = w2.detach().to(dt).contiguous()
+    out = torch.empty_like(x2)
+    code = _build.library().skoots_mlp_tail(
+        _build.DTYPE_CODES[dt], x2.data_ptr(), s2.data_ptr(),
+        vec[0].data_ptr(), vec[1].data_ptr(), w1c.data_ptr(), vec[2].data_ptr(),
+        w2c.data_ptr(), vec[3].data_ptr(), vec[4].data_ptr(), out.data_ptr(),
+        x2.shape[0], c, EPS, _build.stream_ptr(x))
+    _build.check(code, "mlp_block_tail")
+    mlp_block_tail.launches += 1
+    return out.view(x.shape)
+
+
+mlp_block_tail.launches = 0

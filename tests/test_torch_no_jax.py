@@ -1,0 +1,80 @@
+"""``skoots_tpu_torch`` and ``chip_smoke.py`` stand alone: they import no
+JAX, no flax and nothing of the JAX package, and nothing on the GPU path
+needs Pillow, PyYAML or msgpack at import time (the machine with the card
+has none of them)."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "skoots_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "skoots_tpu", "PIL", "yaml",
+           "msgpack")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None  # any import of these now raises ImportError
+import skoots_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(skoots_tpu_torch.__path__,
+                                               'skoots_tpu_torch.')
+         if m.name != 'skoots_tpu_torch.__main__']  # that one runs the CLI
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_pil_yaml_msgpack():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # every module was visited
+
+
+def _imports(path: Path):
+    """(module, at top level?) for every import statement in a file."""
+    tree = ast.parse(path.read_text())
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module, id(node) in top
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_anywhere(path):
+    """Not even inside a function: the port never reaches the JAX package."""
+    for mod, at_top in _imports(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "optax", "skoots_tpu"), mod
+        if at_top:
+            assert root not in ("PIL", "yaml", "msgpack"), mod
+
+
+@pytest.mark.parametrize("alone", [True, False])
+def test_chip_smoke_fails_without_a_gpu(tmp_path, alone):
+    """Without a card -- and, alone in a directory, without the package --
+    the smoke script exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    cwd = ROOT
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
