@@ -6,19 +6,31 @@ Needs a CUDA card and ``nvcc``; exits non-zero (printing no result) without
 them. In order:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc``;
+2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all at once);
 3. compares every kernel with its plain PyTorch version on the card, at the
-   shapes the main path gives it, on seeded random inputs, and times both
-   with CUDA events (median of several runs);
-4. runs the main path -- ``infer.device_pipeline.make_chunked_pipeline`` on
-   the bench checkpoint ``runs/bench_ckpt.skoots`` at its full width, over
-   the seeded tube phantom rendered on the card, with ``bench.py``'s knobs --
-   with every kernel's launch count set to 0 just before and read just after;
-5. prints the phase split, the instance count against the number of placed
+   shapes the two main paths give it, on seeded random inputs, and times
+   both with CUDA events (median of several runs); checks that the block
+   tail's and LN head's autograd backward is exactly the autograd of their
+   plain compositions;
+4. inference path: ``infer.device_pipeline.make_chunked_pipeline`` on the
+   bench checkpoint ``runs/bench_ckpt.skoots`` at its full width, over the
+   seeded tube phantom rendered on the card, with ``bench.py``'s knobs --
+   every kernel's launch count set to 0 just before and read just after;
+   prints the phase split, the instance count against the number of placed
    tubes, the CC rounds, the launch counts and peak device memory;
-6. runs the same pipeline on a 128x128x64 block of the phantom on the card
+5. runs the same pipeline on a 128x128x64 block of the phantom on the card
    and on the CPU (every kernel's plain version) and compares the instances;
-7. prints one JSON line of per-kernel results, and last the
+6. one f32 train step of the full-width model on a 32x32x16 batch, on the
+   card and on the CPU from the same weights: loss and every gradient;
+7. training path (``skoots-train`` at the bench checkpoint's training cfg:
+   bf16, crop 96x96x32, batch 1, on seeded synthetic tube volumes): 8 steps
+   on one augmented batch (the loss must fall; the step time split into
+   augment, forward + loss, backward and optimizer, and peak memory), then
+   ``train.engine.train`` for 2 epochs of 8 steps through the whole
+   augmentation with the launch counts set to 0 before and read after, and
+   the saved checkpoint loaded back and run;
+8. prints one JSON line of per-kernel results, and last the
    ``{"ok": true, ...}`` device line.
 
 Every phase raises on failure; nothing here catches it. Imports no JAX.
@@ -40,6 +52,8 @@ SEED = 0
 # bench checkpoint's UNeXT widths 32-64-128 and a 512^3 volume
 TILE = (256, 256, 96)
 VOLUME = (512, 512, 512)
+# training path: the bench checkpoint's training crop
+TRAIN_CROP = (96, 96, 32)
 REPEATS = 5
 
 
@@ -94,6 +108,26 @@ def _randn(rng, shape, scale=1.0, dtype=None, device="cuda"):
     return t.to(dtype) if dtype is not None else t
 
 
+def _record(results, name, source, replaces, err, err_abs, bound, unit, ms,
+            plain_ms):
+    """Print one kernel-vs-plain comparison, fail above ``bound``, and sum
+    it into the kernel's entry of ``results``."""
+    ok = err <= bound
+    print(f"kernel {name}: max err {err:.6g} {unit} (bound {bound:g}) "
+          f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    _need(ok, f"{name}: error {err} {unit} above bound {bound}")
+    for r in results:
+        if r["name"] == name:
+            r["max_abs_err"] = max(r["max_abs_err"], err_abs)
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            return
+    results.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": 0,
+                    "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms})
+
+
 def check_kernels() -> list:
     """Kernel vs plain version on the card at the main-path shapes."""
     import torch
@@ -111,21 +145,8 @@ def check_kernels() -> list:
     tx, ty, tz = TILE
     results = []
 
-    def record(name, source, replaces, err, err_abs, bound, unit, ms, plain_ms):
-        ok = err <= bound
-        print(f"kernel {name}: max err {err:.6g} {unit} (bound {bound:g}) "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        _need(ok, f"{name}: error {err} {unit} above bound {bound}")
-        for r in results:
-            if r["name"] == name:
-                r["max_abs_err"] = max(r["max_abs_err"], err_abs)
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
-                return
-        results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms})
+    def record(*args):
+        _record(results, *args)
 
     # 1. depthwise 7^3 conv: stem (1 -> 32, channel stride 0), then the
     #    three block widths at their resolutions; bound 1 bf16 ulp
@@ -276,10 +297,10 @@ def run_slice(results: list):
     print(f"n_instances {n_instances} n_expected {n_expected}", flush=True)
     print(f"cc_rounds {run.last_cc_rounds} cc_converged {run.last_cc_converged}",
           flush=True)
-    print(f"launches {json.dumps(counts)}", flush=True)
+    print(f"inference launches {json.dumps(counts)}", flush=True)
     print(f"peak_device_memory_bytes {peak}", flush=True)
     for r in results:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = counts.get(r["name"], 0)
     for name, n in counts.items():
         _need(n > 0, f"kernel {name} was not launched on the main path")
     _need(0.8 * n_expected <= n_instances <= n_expected + 4,
@@ -328,6 +349,296 @@ def check_against_cpu(ckpt, model, volume) -> None:
           "the card's instances differ from the plain versions' on the CPU")
 
 
+def check_train_kernels(results: list) -> None:
+    """The training path's kernels against their plain versions at its
+    shapes (crop 96x96x32 and its two coarser levels), and the autograd
+    wiring of the block tail and LN head."""
+    import torch
+
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel, bake_skeleton_ref
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d_wgrad, dwconv3d_wgrad_ref
+    from skoots_tpu_torch.kernels.lnhead import ln_head, xla_ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail, xla_tail
+
+    rng = np.random.default_rng(SEED + 1)
+    bf = torch.bfloat16
+    cx, cy, cz = TRAIN_CROP
+
+    # 1. depthwise weight gradient: the stem (1 -> 32, channel stride 0)
+    #    and the three block widths at their levels; bound 1e-3 * max|plain|
+    #    (f32 sums of the same bf16 products in another order)
+    for (sx, sy, sz), cin, c in (((cx, cy, cz), 1, 32), ((cx, cy, cz), 32, 32),
+                                 ((cx // 2, cy // 2, cz // 2), 64, 64),
+                                 ((cx // 4, cy // 4, cz // 4), 128, 128)):
+        x = _randn(rng, (1, sx, sy, sz, cin), dtype=bf)
+        g = _randn(rng, (1, sx, sy, sz, c), 1e-3, dtype=bf)
+        got = dwconv3d_wgrad(x, g, 7)
+        ref = dwconv3d_wgrad_ref(x, g, 7)
+        torch.cuda.synchronize()
+        err_abs = float((got - ref).abs().max())
+        _record(results, "dwconv3d_wgrad", "skoots_tpu_torch/csrc/dwconv_wgrad.cu",
+                "skoots_tpu/kernels/dwconv.py:782", err_abs / float(ref.abs().max()),
+                err_abs, 1e-3, f"of max|plain| at {(sx, sy, sz)} {cin}->{c}",
+                _time_ms(lambda: dwconv3d_wgrad(x, g, 7)),
+                _time_ms(lambda: dwconv3d_wgrad_ref(x, g, 7)))
+        del x, g, got, ref
+
+    # 2. skeleton bake over one crop, anisotropy (1, 1, 3): 8 box
+    #    instances, P points inside them; exact
+    shape = (cx, cy, cz)
+    masks = torch.zeros(shape, dtype=torch.int32)
+    boxes = []
+    for i in range(1, 9):
+        lo = rng.integers(0, np.asarray(shape) // 2)
+        hi = lo + rng.integers(4, np.asarray(shape) // 2)
+        masks[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = i
+        boxes.append((lo, hi))
+    masks = masks.cuda()
+    for p in (256, 4096):
+        ids = rng.integers(1, 9, p).astype(np.int32)
+        ids[-p // 16:] = 0  # padding
+        lo = np.stack([boxes[i - 1][0] for i in np.maximum(ids, 1)])
+        hi = np.stack([boxes[i - 1][1] for i in np.maximum(ids, 1)])
+        pts = (lo + rng.random((p, 3)) * (hi - lo)).astype(np.float32)
+        pts_t = torch.from_numpy(pts).cuda()
+        ids_t = torch.from_numpy(ids).cuda()
+        got = bake_skeleton_kernel(masks, pts_t, ids_t, (1.0, 1.0, 3.0))
+        ref = bake_skeleton_ref(masks, pts_t, ids_t, (1.0, 1.0, 3.0))
+        torch.cuda.synchronize()
+        diff = int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
+        err_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        _record(results, "bake_skeleton", "skoots_tpu_torch/csrc/bake.cu",
+                "skoots_tpu/kernels/bake.py:112", float(diff), err_abs, 0.0,
+                f"values differing at V={masks.numel()} P={p}",
+                _time_ms(lambda: bake_skeleton_kernel(masks, pts_t, ids_t, (1.0, 1.0, 3.0))),
+                _time_ms(lambda: bake_skeleton_ref(masks, pts_t, ids_t, (1.0, 1.0, 3.0))))
+        del got, ref
+
+    # 3. autograd wiring: each wrapper's gradients are exactly the autograd
+    #    of its plain composition at the same inputs (the backward
+    #    recomputes from them), at the path's widths
+    def same_grads(fn, comp, args):
+        out = fn(*args)
+        g = torch.randn(out.shape, device="cuda").to(out.dtype)
+        got = torch.autograd.grad(out, args, g)
+        want = torch.autograd.grad(comp(*args), args, g)
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    v = cx * cy * cz
+    for vv, c in ((v, 32), (v // 8, 64), (v // 64, 128)):
+        args = [_randn(rng, (vv, c), dtype=bf), _randn(rng, (vv, c), 0.1, dtype=bf),
+                _randn(rng, (c,), 0.1) + 1.0, _randn(rng, (c,), 0.1),
+                _randn(rng, (c, 4 * c), 1 / np.sqrt(c)), _randn(rng, (4 * c,), 0.1),
+                _randn(rng, (4 * c, c), 1 / np.sqrt(4 * c)), _randn(rng, (c,), 0.1),
+                torch.full((c,), 0.5, device="cuda")]
+        args = [a.requires_grad_() for a in args]
+        ok = same_grads(mlp_block_tail, xla_tail, args)
+        print(f"backward mlp_block_tail V={vv} C={c}: "
+              f"{'equal' if ok else 'DIFFERENT'}", flush=True)
+        _need(ok, f"mlp_block_tail backward differs from its composition at C={c}")
+    args = [_randn(rng, (v, 32), dtype=bf), _randn(rng, (32,), 0.1) + 1.0,
+            _randn(rng, (32,), 0.1), _randn(rng, (32, 32), 1 / np.sqrt(32)),
+            _randn(rng, (32,), 0.1)]
+    args = [a.requires_grad_() for a in args]
+    ok = same_grads(ln_head, xla_ln_head, args)
+    print(f"backward ln_head V={v} C=32->32: {'equal' if ok else 'DIFFERENT'}", flush=True)
+    _need(ok, "ln_head backward differs from its composition")
+    torch.cuda.empty_cache()
+
+
+def _bench_train_cfg() -> dict:
+    """The training cfg embedded in the bench checkpoint, on the defaults."""
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.config import cfg_from_dict
+
+    return cfg_from_dict(load_checkpoint(os.path.join(ROOT, "runs", "bench_ckpt.skoots"))["cfg"])
+
+
+def check_grads_against_cpu() -> None:
+    """One f32 train step of the bench model at full width (dims
+    32-64-128, depth 2, 7^3) on one seeded 32x32x16 batch, on the card and
+    on the CPU (every kernel's plain version) from the same initial
+    weights: loss within 1e-4 relative, every gradient present, finite and
+    within 1e-3 * max|g_cpu|. TF32 is off for the comparison."""
+    import torch
+
+    from skoots_tpu_torch.models import init_model
+    from skoots_tpu_torch.ops.skeleton import bake_skeleton, pack_skeletons, skeleton_to_mask
+    from skoots_tpu_torch.train.engine import cfg_optimizer, make_train_step
+    from skoots_tpu_torch.train.sigma import init_sigma
+    from skoots_tpu_torch.utils.synthetic import make_tubes
+
+    cfg = _bench_train_cfg()
+    cfg["MODEL"]["DTYPE"] = "float32"
+    shape = (32, 32, 16)
+    img, labels, skels = make_tubes(shape=shape, n_tubes=3, radius=3, seed=3)
+    packed = pack_skeletons(skels)
+    batch = {
+        "image": torch.from_numpy((img.astype(np.float32) - 41.8) / 20.4)[None, ..., None],
+        "masks": torch.from_numpy((labels > 0).astype(np.float32))[None, ..., None],
+        "baked": bake_skeleton(torch.from_numpy(labels), packed,
+                               tuple(cfg["AUGMENTATION"]["BAKE_SKELETON_ANISOTROPY"]))[None],
+        "skele_masks": skeleton_to_mask(packed, shape, 3, 3)[None, ..., None],
+    }
+    runs = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            model = init_model(cfg, SEED, device=dev).train()
+            opt, sched = cfg_optimizer(cfg, model.parameters())
+            step = make_train_step(model, opt, sched, init_sigma(cfg), cfg)
+            total, _ = step.loss_fn({k: v.to(dev) for k, v in batch.items()}, 0)
+            total.backward()
+            runs.append((float(total.detach()), {n: (None if p.grad is None else p.grad.cpu())
+                                        for n, p in model.named_parameters()}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    worst, worst_name = 0.0, ""
+    for name, gc in g_cpu.items():
+        gd = g_card[name]
+        _need(gd is not None and gc is not None, f"{name}: no gradient")
+        _need(bool(torch.isfinite(gd).all()), f"{name}: gradient not finite on the card")
+        rel = float((gd - gc).abs().max()) / max(float(gc.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"grads card vs cpu (f32, {shape}): loss {l_card:.8g} vs {l_cpu:.8g} "
+          f"(rel {abs(l_card - l_cpu) / abs(l_cpu):.3g}, bound 1e-4); "
+          f"{len(g_cpu)} gradients, worst {worst:.3g} of max|g_cpu| at {worst_name} "
+          f"(bound 1e-3)", flush=True)
+    _need(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu), "card and CPU losses differ")
+    _need(worst <= 1e-3, f"gradient {worst_name} differs between card and CPU")
+
+
+def run_train_slice(results: list) -> None:
+    """The training path at the bench checkpoint's training cfg (bf16, crop
+    96x96x32, batch 1) on two seeded 256x256x32 tube volumes with 8 tubes
+    each, held in memory as ``VolumeRecord`` objects."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+    from skoots_tpu_torch.models import init_model, model_from_checkpoint
+    from skoots_tpu_torch.train.data import (
+        SkootsDataset,
+        VolumeRecord,
+        batch_iterator,
+        prefetch_iterator,
+    )
+    from skoots_tpu_torch.train.engine import cfg_optimizer, make_train_step, train
+    from skoots_tpu_torch.train.sigma import init_sigma
+    from skoots_tpu_torch.train.transforms import make_batch_augment
+    from skoots_tpu_torch.utils.synthetic import make_tubes
+
+    dev = torch.device("cuda")
+    cfg = _bench_train_cfg()
+    t = cfg["TRAIN"]
+    t["NUM_EPOCHS"] = 2
+    t["SAVE_INTERVAL"] = 2
+    t["SAVE_PATH"] = os.path.join(ROOT, "build", "train_smoke")
+    seed = t["SEED"]
+    t0 = time.time()
+    records = []
+    for i in range(2):
+        img, labels, skels = make_tubes(shape=(256, 256, 32), n_tubes=8, radius=5, seed=i)
+        records.append(VolumeRecord(img.astype(np.float32), labels, skels, f"tubes{i}"))
+    dataset = SkootsDataset(records, cfg, sample_per_image=8)
+    mean, std = dataset.mean_std(with_invert=cfg["AUGMENTATION"]["INVERT_RATE"] > 0)
+    radius = dataset.object_radius()
+    augment = make_batch_augment(cfg, mean, std, dataset.intensity_ceiling(), device=dev)
+    bsz = t["TRAIN_BATCH_SIZE"]
+    host = batch_iterator(dataset, bsz, 8, seed)
+    print(f"train setup: {time.time() - t0:.2f} s (2 volumes (256, 256, 32), "
+          f"mean {mean:.4f} std {std:.4f}, object radius {radius})", flush=True)
+
+    # 8 steps on one augmented batch, from a seeded fresh init
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, seed, device=dev).train()
+    opt, sched = cfg_optimizer(cfg, model.parameters())
+    step = make_train_step(model, opt, sched, init_sigma(cfg), cfg)
+    gen = torch.Generator().manual_seed(seed)
+    host_batches = list(host(0))
+    fixed = augment(host_batches[0], gen)
+    losses, splits = [], []
+    for i in range(8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        augment(host_batches[i], gen)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        total, metrics = step.loss_fn(fixed, 0)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        step.apply_update(0)
+        ev[4].record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        splits.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    with torch.no_grad():
+        final = float(step.loss_fn(fixed, 0)[0])
+    peak = torch.cuda.max_memory_allocated()
+    warm = np.median(np.asarray(splits[1:]), axis=0)
+    print(f"train losses over 8 steps on one batch: {[round(v, 6) for v in losses]}, "
+          f"after step 8: {final:.6f}", flush=True)
+    print(f"train step split (warm median of 7, ms): augment {warm[0]:.3f} "
+          f"forward+loss {warm[1]:.3f} backward {warm[2]:.3f} optimizer {warm[3]:.3f} "
+          f"step {warm[1:].sum():.3f}", flush=True)
+    print(f"train peak_device_memory_bytes {peak}", flush=True)
+    _need(all(np.isfinite(losses)) and final < losses[0],
+          f"the loss did not fall over 8 steps: {losses[0]} -> {final}")
+    del model, opt, step, fixed
+
+    # train() for 2 epochs of 8 steps through the whole augmentation
+    kernels = {"dwconv3d": dwconv3d, "dwconv3d_wgrad": dwconv3d_wgrad,
+               "mlp_block_tail": mlp_block_tail, "ln_head": ln_head,
+               "bake_skeleton": bake_skeleton_kernel}
+    host_pf = prefetch_iterator(host)
+
+    def data_iter(epoch: int):
+        g = torch.Generator().manual_seed(seed + epoch)
+        for host_batch in host_pf(epoch):
+            yield augment(host_batch, g)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    state = train(cfg, data_iter, dev, dataset_mean=mean, dataset_std=std,
+                  object_radius=radius)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    n = state.step
+    # per step: 11 depthwise convs forward (stem + 10 blocks) and 10 input
+    # gradients (not the stem's), 11 weight gradients, 10 block tails,
+    # 1 LN head, one bake per sample
+    per_step = {"dwconv3d": 21, "dwconv3d_wgrad": 11, "mlp_block_tail": 10,
+                "ln_head": 1, "bake_skeleton": bsz}
+    print(f"train(): {n} steps in {wall:.3f} s, last epoch means "
+          f"{json.dumps(state.epoch_means)}", flush=True)
+    print(f"train launches {json.dumps(counts)} expected per step "
+          f"{json.dumps(per_step)}", flush=True)
+    for name, c in counts.items():
+        _need(c > 0, f"kernel {name} was not launched by train()")
+        _need(c == n * per_step[name], f"{name}: {c} launches, expected {n * per_step[name]}")
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+
+    ckpt = load_checkpoint(state.save_name)
+    loaded = model_from_checkpoint(ckpt, device=dev)
+    x = augment(host_batches[1], gen)["image"]
+    with torch.no_grad():
+        same = torch.equal(state.model.eval()(x), loaded(x))
+    print(f"checkpoint {os.path.basename(state.save_name)}: epoch "
+          f"{ckpt['extra']['epoch']}, reloaded forward "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    _need(same, "the reloaded checkpoint's forward differs from the trained model's")
+
+
 def main() -> int:
     import torch
 
@@ -349,7 +660,11 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s -> {_build.library_path()}", flush=True)
 
     results = check_kernels()
+    check_train_kernels(results)
     check_against_cpu(*run_slice(results))
+    torch.cuda.empty_cache()
+    check_grads_against_cpu()
+    run_train_slice(results)
     print(json.dumps({"kernels": results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,29 @@
-""".skoots checkpoints, read without JAX, flax or the msgpack package.
+""".skoots checkpoints, read and written without JAX, flax or the msgpack
+package.
 
-Port of ``skoots_tpu/train/checkpoint.py:66-84``. A checkpoint is the magic
+Port of ``skoots_tpu/train/checkpoint.py:37-84``. A checkpoint is the magic
 ``SKOOTSTPU1`` followed by one msgpack document, the flax state dict
 ``{'cfg', 'params', 'opt_state', 'dataset_mean', 'dataset_std', 'extra'}``.
 Arrays are flax's msgpack ext type 1: a nested msgpack ``[shape, dtype
 name, raw bytes]`` (ext type 3 is the same for a numpy scalar). The small
-decoder below covers what those files use; ``cfg`` stays a plain dict.
+decoder and encoder below cover exactly what those files use; ``cfg`` stays
+a plain dict. :func:`save_checkpoint` writes a file that the JAX package's
+``load_checkpoint`` + ``restore_params`` read; ``opt_state`` is written as
+``None`` (the optimizer state's round trip is not ported yet).
 
 :func:`torch_params_from_flax` maps the flax parameter tree onto the port's
 modules (``models/unext.py``), e.g. ``params/backbone/enc0_block0/dwconv/
 kernel`` ``[k, k, k, 1, C]`` -> ``backbone.enc0_block0.dwconv.weight``
 ``[k, k, k, C]``. The port keeps JAX's channels-last layouts, so besides
 squeezing the singleton axes of depthwise and 1x1 kernels every array keeps
-its shape.
+its shape. :func:`flax_params_from_torch` is its inverse.
 """
 
 from __future__ import annotations
 
+import os
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -165,3 +170,151 @@ def torch_params_from_flax(params_np: dict) -> Dict[str, torch.Tensor]:
         out[".".join(parts[:-1] + [name])] = torch.from_numpy(
             np.array(arr, dtype=np.float32))
     return out
+
+
+# modules whose flax counterpart is a 1x1 ``nn.Conv`` (kernel [1,1,1,Cin,
+# Cout]) rather than an ``nn.Dense`` ([din, dout]), and the LayerNorms
+_CONV1X1 = ("head_conv", "vector_head", "skeleton_head", "semantic_head")
+_NORMS = ("norm", "final_norm")
+
+
+def flax_params_from_torch(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """State dict of ``models.SpatialEmbedding`` -> the flax parameter tree
+    ``{'params': {...}}`` of numpy f32 arrays that the JAX model's
+    ``model.init`` builds (the inverse of :func:`torch_params_from_flax`)."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        owner, leaf = parts[-2], parts[-1]
+        arr = t.detach().to("cpu", torch.float32).numpy().copy()
+        if leaf == "weight":
+            leaf = "scale" if owner in _NORMS else "kernel"
+        if leaf == "kernel":
+            if owner in ("dwconv", "stem"):
+                arr = arr[:, :, :, None, :]
+            elif owner in _CONV1X1:
+                arr = arr[None, None, None]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return {"params": tree}
+
+
+class _Writer:
+    """Encoder for the msgpack subset :class:`_Reader` decodes."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def _head(self, n: int, fix: Optional[int], fix_max: int, codes) -> None:
+        if fix is not None and n <= fix_max:
+            self.out.append(fix | n)
+            return
+        for code, fmt in codes:
+            if n < (1 << (8 * struct.calcsize(fmt))):
+                self.out.append(code)
+                self.out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    def value(self, obj: Any) -> None:
+        out = self.out
+        if obj is None:
+            out.append(0xC0)
+        elif obj is True or obj is False:
+            out.append(0xC3 if obj else 0xC2)
+        elif isinstance(obj, np.ndarray):
+            self._ext(1, obj)
+        elif isinstance(obj, np.generic):
+            self._ext(3, np.asarray(obj))
+        elif isinstance(obj, int):
+            self._int(obj)
+        elif isinstance(obj, float):
+            out.append(0xCB)
+            out += struct.pack(">d", obj)
+        elif isinstance(obj, str):
+            raw = obj.encode("utf-8")
+            self._head(len(raw), 0xA0, 31,
+                       ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+            out += raw
+        elif isinstance(obj, (bytes, bytearray)):
+            self._head(len(obj), None, 0,
+                       ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+            out += obj
+        elif isinstance(obj, (list, tuple)):
+            self._head(len(obj), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+            for v in obj:
+                self.value(v)
+        elif isinstance(obj, dict):
+            self._head(len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+            for k in sorted(obj):  # flax writes maps in key order
+                self.value(k)
+                self.value(obj[k])
+        else:
+            raise TypeError(f"cannot msgpack {type(obj)}")
+
+    def _int(self, v: int) -> None:
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            self.out += struct.pack(">b" if v < 0 else ">B", v)
+            return
+        fmts = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if v >= 0 \
+            else ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+        for code, fmt in fmts:
+            try:
+                packed = struct.pack(fmt, v)
+            except struct.error:
+                continue
+            self.out.append(code)
+            self.out += packed
+            return
+        raise ValueError(f"integer {v} out of msgpack range")
+
+    def _ext(self, code: int, arr: np.ndarray) -> None:
+        """flax's array extension: msgpack ``[shape, dtype name, bytes]``."""
+        inner = _Writer()
+        inner.value([list(arr.shape), arr.dtype.name,
+                     np.ascontiguousarray(arr).tobytes()])
+        data = bytes(inner.out)
+        n = len(data)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out.append(fixed[n])
+        else:
+            self._head(n, None, 0, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        self.out += struct.pack(">b", code)
+        self.out += data
+
+
+def msgpack_encode(obj: Any) -> bytes:
+    w = _Writer()
+    w.value(obj)
+    return bytes(w.out)
+
+
+def save_checkpoint(
+    path: str,
+    cfg: dict,
+    state_dict: Dict[str, torch.Tensor],
+    dataset_mean: float = 0.0,
+    dataset_std: float = 1.0,
+    extra: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Write a ``.skoots`` checkpoint of a ``SpatialEmbedding`` state dict
+    (``opt_state`` None), atomically: a crash never truncates the file."""
+    from skoots_tpu_torch.config import to_plain
+
+    state = {
+        "cfg": to_plain(cfg),
+        "params": flax_params_from_torch(state_dict),
+        "opt_state": None,
+        "dataset_mean": float(dataset_mean),
+        "dataset_std": float(dataset_std),
+        "extra": to_plain(extra or {}),
+    }
+    blob = msgpack_encode(state)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(MAGIC)
+        f.write(blob)
+    os.replace(tmp, path)

@@ -1,9 +1,10 @@
-"""Data-derived phase-1 dilation knobs (numpy/scipy; copied from
-``skoots_tpu/infer/autoknobs.py:34-110``).
+"""Data-derived knobs (numpy/scipy; copied from
+``skoots_tpu/infer/autoknobs.py:34-110,254-286``).
 
 Auto mode runs a few probe tiles with NO dilation, measures the minimum
 spacing between sizeable connected components of the raw thresholded
 skeleton, and picks the largest dilation stack that cannot bridge it.
+Training stores :func:`estimate_object_radius` in the checkpoint.
 """
 
 from __future__ import annotations
@@ -94,3 +95,34 @@ def derive_dilation(
     )
     d3 = 1 if (iso and d_total >= 2) else 0
     return d3, d_total - d3
+
+
+def estimate_object_radius(
+    labels: np.ndarray, skeleton_points: dict | None = None
+) -> Optional[float]:
+    """Median EDT of the foreground at the skeleton points -- the object
+    radius a checkpoint records at train time. ``skeleton_points``
+    ``{instance_id: [N, 3]}``; without them the EDT ridge (values at or
+    above the 80th percentile) stands in."""
+    from scipy import ndimage
+
+    fg = np.asarray(labels) > 0
+    if not fg.any():
+        return None
+    edt = ndimage.distance_transform_edt(fg)
+    if skeleton_points:
+        vals = []
+        shape = fg.shape
+        for pts in skeleton_points.values():
+            pts = np.asarray(pts)
+            if pts.size == 0:
+                continue
+            ii = np.clip(np.round(pts).astype(int), 0, np.asarray(shape) - 1)
+            vals.append(edt[ii[:, 0], ii[:, 1], ii[:, 2]])
+        if vals:
+            vals = np.concatenate(vals)
+            vals = vals[vals > 0]
+            if vals.size:
+                return float(np.median(vals))
+    ridge = edt[edt >= np.quantile(edt[fg], 0.8)]
+    return float(np.median(ridge)) if ridge.size else None

@@ -44,6 +44,13 @@ _SIGNATURES = {
     "skoots_ln_head": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
     # labels_in, fg, labels_out, X, Y, Z, connectivity, stream
     "skoots_propagate": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # B, X, Y, Z -> rows of the partial-sum buffer (a count, not an error)
+    "skoots_dwconv3d_wgrad_tiles": (_I, _I, _I, _I),
+    # dtype, x, g, partial, out, B, X, Y, Z, C, k, x_vstride, x_cstride, stream
+    "skoots_dwconv3d_wgrad": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
+                              _L, _P),
+    # mask, points, ids, P, X, Y, Z, wx, wy, wz, baked, dist, stream
+    "skoots_bake": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P),
 }
 
 
@@ -69,20 +76,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libskoots_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once and raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the library if the current sources have not been built."""
+    """Compile the library if the current sources have not been built: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, cmds = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        cmds.append([_nvcc(), *compile_flags, "-c", str(src), "-o", str(obj)])
+    try:
+        _run_all(cmds)
+        tmp = BUILD_DIR / f"{tag}.so"
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

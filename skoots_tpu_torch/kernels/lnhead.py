@@ -8,6 +8,13 @@ Numerics of both versions, as at ``lnhead.py:39-49``: LN statistics in f32
 (eps 1e-6), the affine result rounded to the model dtype ``dt``, the matmul
 accumulated in f32 and rounded to ``dt``, then the ``dt`` bias added and
 rounded once more.
+
+:func:`ln_head` is a ``torch.autograd.Function``: the forward runs the
+kernel (the plain version on the CPU), the backward is the autograd of
+:func:`xla_ln_head`, the plain composition the JAX ``custom_vjp``
+differentiates (``lnhead.py:79-114``) -- never of :func:`ln_head_ref`, whose
+one-product-at-a-time sum exists only to be the kernel's bit-exact
+reference.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from skoots_tpu_torch.kernels import _build
-from skoots_tpu_torch.kernels.mlp import EPS, _rnd, layer_norm_rows
+from skoots_tpu_torch.kernels.mlp import EPS, _rnd, layer_norm_rows, recompute_grads
 
 
 def _dot_in_order(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -37,9 +44,23 @@ def ln_head_ref(x, ln_scale, ln_bias, w, b):
     return (y + _rnd(b.float(), dt)).to(dt)
 
 
-def ln_head(x, ln_scale, ln_bias, w, b):
-    """Fused LN + 1x1 head: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor (raises on what the kernel does not take)."""
+def xla_ln_head(x, ln_scale, ln_bias, w, b, eps: float = EPS):
+    """The JAX package's XLA composition (``lnhead.py::_xla_ln_head``) with
+    the parameters cast to the model dtype as the model passes them; its
+    autograd is the head's backward."""
+    dt = x.dtype
+    ls, lb, w, b = (t.to(dt) for t in (ln_scale, ln_bias, w, b))
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    h = xc * torch.rsqrt(var + eps)
+    h = (h * ls.float() + lb.float()).to(dt)
+    return torch.matmul(h, w) + b
+
+
+def _ln_head_fwd(x, ln_scale, ln_bias, w, b):
+    """One kernel launch (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":
         return ln_head_ref(x, ln_scale, ln_bias, w, b)
     _build.require_cuda(x, "ln_head")
@@ -51,9 +72,8 @@ def ln_head(x, ln_scale, ln_bias, w, b):
     _build.check_operands("ln_head", x.device, ln_scale=(ln_scale, (c,)),
                           ln_bias=(ln_bias, (c,)), w=(w, (c, n)), b=(b, (n,)))
     x2 = x.contiguous().view(-1, c)
-    ls, lb, bb = (_rnd(t.detach().float(), dt).contiguous()
-                  for t in (ln_scale, ln_bias, b))
-    wc = w.detach().to(dt).contiguous()
+    ls, lb, bb = (_rnd(t.float(), dt).contiguous() for t in (ln_scale, ln_bias, b))
+    wc = w.to(dt).contiguous()
     out = torch.empty((x2.shape[0], n), dtype=dt, device=x.device)
     code = _build.library().skoots_ln_head(
         _build.DTYPE_CODES[dt], x2.data_ptr(), ls.data_ptr(), lb.data_ptr(),
@@ -62,6 +82,25 @@ def ln_head(x, ln_scale, ln_bias, w, b):
     _build.check(code, "ln_head")
     ln_head.launches += 1
     return out.view(*x.shape[:-1], n)
+
+
+class _LNHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _ln_head_fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(xla_ln_head, ctx.saved_tensors,
+                               ctx.needs_input_grad, g)
+
+
+def ln_head(x, ln_scale, ln_bias, w, b):
+    """Differentiable fused LN + 1x1 head: the plain version for a CPU
+    tensor, the CUDA kernel for a CUDA tensor (raises on what the kernel
+    does not take); the backward differentiates :func:`xla_ln_head`."""
+    return _LNHead.apply(x, ln_scale, ln_bias, w, b)
 
 
 ln_head.launches = 0

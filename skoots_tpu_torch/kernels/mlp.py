@@ -11,6 +11,11 @@ f32), as at ``mlp.py:78-95`` of the TPU kernel: after the LayerNorm affine
 bias add, after the exact-erf GELU (computed in f32), after the layer-scale
 multiply and after the residual add. The LN scale/bias, the biases and
 gamma enter as ``dt`` values, as the Pallas kernel receives them.
+
+:func:`mlp_block_tail` is a ``torch.autograd.Function``: the forward runs
+the kernel (the plain version on the CPU), the backward is the autograd of
+:func:`xla_tail`, the plain composition the JAX ``custom_vjp`` differentiates
+(``mlp.py:130-173``), recomputed from the saved inputs.
 """
 
 from __future__ import annotations
@@ -73,9 +78,28 @@ def mlp_block_tail_ref(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
     return (shortcut.float() + y).to(dt)
 
 
-def mlp_block_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
-    """Fused block tail: the plain version for a CPU tensor, the CUDA kernel
-    for a CUDA tensor (raises on what the kernel does not take)."""
+def xla_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
+             eps: float = EPS):
+    """The JAX package's XLA composition (``mlp.py::_xla_tail``) with the
+    parameters cast to the model dtype as the block passes them: two-pass
+    variance, f32 LN statistics, dt matmuls with f32 accumulation, dt bias
+    adds. Its autograd is the block tail's backward."""
+    dt = x.dtype
+    ls, lb, w1, b1, w2, b2 = (t.to(dt) for t in (ln_scale, ln_bias, w1, b1, w2, b2))
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    h = xc * torch.rsqrt(var + eps)
+    h = (h * ls.float() + lb.float()).to(dt)
+    a = torch.matmul(h, w1) + b1
+    a = torch.nn.functional.gelu(a.float()).to(dt)
+    y = torch.matmul(a, w2) + b2
+    return shortcut + y * gamma.to(dt)
+
+
+def _mlp_fwd(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
+    """One kernel launch (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":
         return mlp_block_tail_ref(x, shortcut, ln_scale, ln_bias, w1, b1, w2,
                                   b2, gamma)
@@ -90,10 +114,9 @@ def mlp_block_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
         b1=(b1, (4 * c,)), w2=(w2, (4 * c, c)), b2=(b2, (c,)), gamma=(gamma, (c,)))
     x2 = x.contiguous().view(-1, c)
     s2 = shortcut.contiguous().view(-1, c)
-    vec = [_rnd(t.detach().float(), dt).contiguous()
-           for t in (ln_scale, ln_bias, b1, b2, gamma)]
-    w1c = w1.detach().to(dt).contiguous()
-    w2c = w2.detach().to(dt).contiguous()
+    vec = [_rnd(t.float(), dt).contiguous() for t in (ln_scale, ln_bias, b1, b2, gamma)]
+    w1c = w1.to(dt).contiguous()
+    w2c = w2.to(dt).contiguous()
     out = torch.empty_like(x2)
     code = _build.library().skoots_mlp_tail(
         _build.DTYPE_CODES[dt], x2.data_ptr(), s2.data_ptr(),
@@ -103,6 +126,36 @@ def mlp_block_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
     _build.check(code, "mlp_block_tail")
     mlp_block_tail.launches += 1
     return out.view(x.shape)
+
+
+def recompute_grads(composition, saved, needs, g):
+    """Gradients of ``composition(*saved)`` for cotangent ``g``, w.r.t. the
+    inputs flagged in ``needs`` (``None`` elsewhere): the backward of a
+    kernel whose TPU ``custom_vjp`` differentiates an XLA composition."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = composition(*inputs)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g)) if wrt else iter(())
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _MLPTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _mlp_fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_grads(xla_tail, ctx.saved_tensors, ctx.needs_input_grad, g)
+
+
+def mlp_block_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
+    """Differentiable fused block tail: the plain version for a CPU tensor,
+    the CUDA kernel for a CUDA tensor (raises on what the kernel does not
+    take); the backward differentiates :func:`xla_tail`."""
+    return _MLPTail.apply(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma)
 
 
 mlp_block_tail.launches = 0

@@ -7,6 +7,8 @@ the ``bism_unext`` / ``unext`` architecture; any other raises
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from skoots_tpu_torch.models.spatial_embedding import SpatialEmbedding
@@ -26,6 +28,10 @@ def cfg_to_model(cfg: dict, device=None) -> SpatialEmbedding:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (see ROADMAP.md); "
             "the port builds 'bism_unext' / 'unext'")
+    if float(m.get("DROP_PATH_RATE", 0.0)) > 0:
+        raise NotImplementedError(
+            "MODEL.DROP_PATH_RATE > 0 (stochastic depth) is not ported yet "
+            "(see ROADMAP.md); the port trains with DROP_PATH_RATE 0")
     dtype = _DTYPES[m.get("DTYPE", "bfloat16")]
     backbone = UNeXT3D(
         in_channels=m["IN_CHANNELS"], out_channels=m["OUT_CHANNELS"],
@@ -49,3 +55,46 @@ def load_flax_params(model: SpatialEmbedding, params_np: dict) -> SpatialEmbeddi
 def model_from_checkpoint(ckpt: dict, device=None) -> SpatialEmbedding:
     """The model of a loaded checkpoint, with its weights, on ``device``."""
     return load_flax_params(cfg_to_model(ckpt["cfg"], device), ckpt["params"])
+
+
+# flax's lecun_normal: a normal truncated to [-2, 2] standard deviations,
+# rescaled so the truncated distribution has variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_parameters(model: SpatialEmbedding, seed: int) -> SpatialEmbedding:
+    """Initialise ``model`` in place as flax initialises the JAX model, from
+    a ``torch.Generator`` seeded with ``seed`` (so the same seed gives the
+    same weights on any device; JAX's PRNG cannot be matched):
+
+    * every kernel (``*.weight`` of a conv or dense layer): lecun_normal with
+      flax's fan-in rule -- the product of all but the output axis of the
+      flax kernel, i.e. ``k^3`` for a depthwise ``[k, k, k, 1, C]`` kernel,
+      ``8 * Cin`` for the strided ``[2, 2, 2, Cin, C]`` Downsample, ``din``
+      for a dense or 1x1 kernel;
+    * biases 0, LayerNorm scales 1, layer-scale ``gamma`` the config's
+      ``LAYER_SCALE_INIT_VALUE`` (set by the constructor, left as it is).
+    """
+    gen = torch.Generator().manual_seed(int(seed))
+    norms = {name for name, mod in model.named_modules()
+             if mod.__class__.__name__ == "LayerNormParams"}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner, leaf = name.rsplit(".", 1)
+            if leaf == "gamma":
+                continue
+            if owner in norms:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias":
+                p.zero_()
+            else:
+                fan_in = math.prod(p.shape[:-1])
+                w = torch.empty(p.shape, dtype=torch.float32)
+                torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                p.copy_(w * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
+    return model
+
+
+def init_model(cfg: dict, seed: int, device=None) -> SpatialEmbedding:
+    """A freshly initialised model for ``cfg`` (:func:`init_parameters`)."""
+    return init_parameters(cfg_to_model(cfg, device), seed)

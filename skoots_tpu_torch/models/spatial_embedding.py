@@ -26,10 +26,15 @@ class SpatialEmbedding(nn.Module):
         self.skeleton_head = Dense(feat, 1, device)
         self.semantic_head = Dense(feat, 1, device)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` ``[B, X, Y, Z, 1]`` (normalised image) -> ``[B, X, Y, Z, 5]``
-        f32."""
+        f32. In eval mode (inference) no autograd graph is recorded; in
+        train mode the output is differentiable, through the kernels'
+        autograd wrappers."""
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         feat = self.backbone(x)
         heads = (self.vector_head, self.skeleton_head, self.semantic_head)
         # the three 1x1 heads as one matmul: each output column is its own

@@ -26,23 +26,38 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a * b + c`` rounded ONCE (a fused multiply-add), exactly: the
     f64 product of two f32 values is exact, TwoSum gives the f64 sum's
     rounding error, and rounding that sum to odd before the f32 rounding
-    rules out double rounding (53 >= 24 + 2 bits)."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - c
-    err = (c - (s - bb)) + (p - bb)
-    inexact = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(err > 0, float("inf"), float("-inf"))
-    return torch.where(inexact, torch.nextafter(s, toward), s).float()
+    rules out double rounding (53 >= 24 + 2 bits).
+
+    Differentiable as ``a * b + c`` (the training loss goes through the
+    walk's first step): the exact value plus the zero-valued difference
+    ``lin - lin.detach()`` carries the gradient, so it does not depend on
+    whether this torch build differentiates ``nextafter``."""
+    with torch.no_grad():
+        p = a.double() * b.double()
+        cd = c.double()
+        s = p + cd
+        bb = s - cd
+        err = (cd - (s - bb)) + (p - bb)
+        inexact = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+        toward = torch.where(err > 0, float("inf"), float("-inf"))
+        exact = torch.where(inexact, torch.nextafter(s, toward), s).float()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, c)):
+        lin = a * b + c
+        return exact + (lin - lin.detach())
+    return exact
+
+
+def coordinate_mesh(spatial, device=None) -> torch.Tensor:
+    """``[*spatial, D]`` f32 voxel coordinates."""
+    axes = [torch.arange(s, dtype=torch.float32, device=device) for s in spatial]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
 
 
 def _setup(scale, vector):
     spatial = tuple(vector.shape[1:-1])
     d = vector.shape[-1]
     dev = vector.device
-    axes = [torch.arange(s, dtype=torch.float32, device=dev) for s in spatial]
-    mesh = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)[None]
+    mesh = coordinate_mesh(spatial, dev)[None]
     scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
     vec = vector.float()
     embed = fma(vec, scale.view((1,) * (len(spatial) + 1) + (d,)), mesh)

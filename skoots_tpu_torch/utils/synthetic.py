@@ -1,16 +1,59 @@
 """Synthetic tube phantoms (port of ``skoots_tpu/utils/synthetic.py``).
 
-``tube_segments`` (numpy, copied) places straight, well-separated tube
-segments on the host; ``render_tubes`` rasterises them on the device in
-torch, so a 512^3 phantom never exists on the host.
+``make_tubes`` (numpy, copied) makes a small training volume with its
+instance masks and skeletons; ``tube_segments`` (numpy, copied) places
+straight, well-separated tube segments on the host; ``render_tubes``
+rasterises them on the device in torch, so a 512^3 phantom never exists on
+the host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+
+def make_tubes(
+    shape: Tuple[int, int, int] = (128, 128, 16),
+    n_tubes: int = 4,
+    radius: int = 5,
+    seed: int = 101196,
+) -> Tuple[np.ndarray, np.ndarray, Dict[int, np.ndarray]]:
+    """Random smooth tubes: ``(image u8 [X, Y, Z], labels int32 [X, Y, Z],
+    skeletons {id: [M, 3] f32})``, the same arrays as the JAX package's
+    ``make_tubes`` for the same arguments (tubes may touch)."""
+    rng = np.random.default_rng(seed)
+    x, y, z = shape
+    labels = np.zeros(shape, np.int32)
+    skeletons: Dict[int, np.ndarray] = {}
+
+    xx, yy, zz = np.meshgrid(np.arange(x), np.arange(y), np.arange(z), indexing="ij")
+    for tid in range(1, n_tubes + 1):
+        n_pts = max(x, y) // 2
+        t = np.linspace(0, 1, n_pts)
+        start = rng.uniform([radius + 1] * 3, [x - radius - 1, y - radius - 1, z - 2])
+        end = rng.uniform([radius + 1] * 3, [x - radius - 1, y - radius - 1, z - 2])
+        wig = rng.normal(0, 2.0, (3, 3))
+        path = (start[None, :] * (1 - t[:, None]) + end[None, :] * t[:, None]
+                + np.stack([np.sin(t * np.pi * (k + 1)) for k in range(3)], 1) @ wig)
+        path[:, 0] = np.clip(path[:, 0], 1, x - 2)
+        path[:, 1] = np.clip(path[:, 1], 1, y - 2)
+        path[:, 2] = np.clip(path[:, 2], 1, z - 2)
+        skeletons[tid] = path.astype(np.float32)
+
+        # paint the tube: distance to the polyline under z-anisotropy
+        d2min = np.full(shape, np.inf)
+        for p in path[:: max(1, n_pts // 32)]:
+            d2 = (xx - p[0]) ** 2 + (yy - p[1]) ** 2 + ((zz - p[2]) * 3.0) ** 2
+            np.minimum(d2min, d2, out=d2min)
+        labels[(d2min <= radius**2) & (labels == 0)] = tid
+
+    img = np.full(shape, 40.0)
+    img += (labels > 0) * 120.0
+    img += np.random.default_rng(seed + 1).normal(0, 12.0, shape)
+    return np.clip(img, 0, 255).astype(np.uint8), labels, skeletons
 
 
 def tube_segments(

@@ -25,7 +25,7 @@ for name in {BLOCKED!r}:
 import skoots_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(skoots_tpu_torch.__path__,
                                                'skoots_tpu_torch.')
-         if m.name != 'skoots_tpu_torch.__main__']  # that one runs the CLI
+         if not m.name.endswith('.__main__')]  # those run the CLIs
 for name in names:
     importlib.import_module(name)
 import chip_smoke
