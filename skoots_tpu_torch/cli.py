@@ -1,11 +1,11 @@
 """``skoots-torch`` console entry point: the ``skoots --image`` inference
 surface of ``skoots_tpu/cli.py:26-196`` on the PyTorch/CUDA port.
 
-Every argument of the JAX CLI is accepted. The ones whose feature is not
-ported yet (``--skeletonize-train-data``, ``--convert``, ``--experimental``,
-``--use-cached``, ``--out-of-core``, the ``host`` and ``device-thrifty``
-engines, ``--spatial-shards`` > 1) raise ``NotImplementedError``; see
-ROADMAP.md.
+Every argument of the JAX CLI is accepted, plus ``--device`` (default
+``cuda``; ``--device cpu`` runs every kernel's plain version on the CPU).
+The ones whose feature is not ported yet (``--skeletonize-train-data``,
+``--convert``, ``--experimental``, the ``device-thrifty`` engine,
+``--spatial-shards`` > 1) raise ``NotImplementedError``; see ROADMAP.md.
 
     python -m skoots_tpu_torch --image vol.tif --pretrained-checkpoint m.skoots
 """
@@ -63,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "pipeline (volume + all intermediates in HBM, no "
                         "per-tile host traffic); 'host' = tile-streaming "
                         "3-phase engine (any volume size). Default auto: "
-                        "device when the volume fits device memory and no "
-                        "--use-cached buffers are in play")
+                        "host up to 256^3 voxels, with --use-cached buffers "
+                        "or --out-of-core; above that device when the volume "
+                        "fits device memory")
     p.add_argument("--wire-mode", dest="wire_mode",
                    choices=("auto", "store", "recompute"), default="auto",
                    help="host<->device traffic policy for the streaming "
@@ -127,6 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "below typical exist (textured-data skeleton "
                         "specks). 0 disables (the reference never filters, "
                         "eval.py:245-310)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; without a "
+                        "CUDA card this raises unless --device cpu is given)")
     p.add_argument("--experimental", action="store_true",
                    help="use the experimental tuned knob set (prob 0.5, "
                         "3x 2D dilation, decaying embedding walk — reference "
@@ -176,6 +180,7 @@ def main(argv=None) -> int:
             wire_mode=args.wire_mode,
             engine_impl=args.engine_impl,
             min_instance_size=args.min_instance_size,
+            device=args.device,
         )
     return 0
 

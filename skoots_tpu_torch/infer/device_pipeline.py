@@ -33,6 +33,7 @@ from skoots_tpu_torch.ops.cropper import crop_origins
 from skoots_tpu_torch.ops.flood_fill import make_label_components_stepped
 from skoots_tpu_torch.ops.morphology import binary_dilation, binary_dilation_2d
 from skoots_tpu_torch.ops.vec2embed import fma, vector_to_embedding
+from skoots_tpu_torch.utils.device import resolve_device
 
 
 def _round4(d: int) -> int:
@@ -142,7 +143,8 @@ def make_chunked_pipeline(
     device=None,
 ):
     """Build ``run(volume, mean, std) -> int32 instance labels [X, Y, Z]``
-    (on ``device``) for one volume shape; ``model`` is the port's
+    (on ``device``, by default the first CUDA card; asking for CUDA without
+    one raises) for one volume shape; ``model`` is the port's
     ``SpatialEmbedding`` on that device.
 
     Knobs are the JAX package's. ``embed_compact_div`` (with the semantic
@@ -153,7 +155,7 @@ def make_chunked_pipeline(
     last call, ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC
     telemetry.
     """
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = resolve_device(device)
     cc_impl = os.environ.get("SKOOTS_CC_IMPL", cc_impl)
     if cc_impl not in ("auto", "dense"):
         raise NotImplementedError(
@@ -262,10 +264,13 @@ def make_chunked_pipeline(
     return run
 
 
-def estimated_device_bytes(volume_shape) -> int:
+def estimated_device_bytes(volume_shape, thrifty: bool = False) -> int:
     """Peak device memory of :func:`make_chunked_pipeline`, conservatively:
     the padded f32 volume (4 B/vox), bf16 vectors (6) and the mask byte (1)
     in phase 1; int32 labels, CC ping-pong buffers and int32 instances in
-    phases 2-3 -- 24 B/vox covers the worse phase with headroom."""
+    phases 2-3 -- 24 B/vox covers the worse phase with headroom. With
+    ``thrifty``, the JAX package's estimate for its HBM-thrifty pipeline
+    (uint8 volume, mask, CC working set: 13 B/vox), which the port does not
+    have yet."""
     x, y, z = volume_shape
-    return int(x) * int(y) * int(z) * 24
+    return int(x) * int(y) * int(z) * (13 if thrifty else 24)

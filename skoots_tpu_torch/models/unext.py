@@ -8,9 +8,9 @@ Parameter names and layouts follow the flax tree (see
 Dtype policy, as the JAX model's: parameters are f32, compute runs in the
 model dtype (bf16 for the bench checkpoint), LayerNorm statistics are f32
 with eps 1e-6, GELU is the exact-erf form. The depthwise convs, the fused
-block tails and the fused final LN + head run in the hand-written kernels
-(``kernels/``); the strided Downsample conv, the skip-fusing 1x1 conv and
-the trilinear upsample are plain torch, as the JAX package leaves them to
+block tails, the 2x trilinear upsample and the fused final LN + head run in
+the hand-written kernels (``kernels/``); the strided Downsample conv and the
+skip-fusing 1x1 conv are plain torch, as the JAX package leaves them to
 XLA. Those plain ops reproduce flax's rounding points: a convolution or
 matmul accumulates in f32 and rounds once to the model dtype, then its bias
 add rounds again.
@@ -27,6 +27,7 @@ from torch import nn
 from skoots_tpu_torch.kernels.dwconv import dwconv3d
 from skoots_tpu_torch.kernels.lnhead import ln_head
 from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+from skoots_tpu_torch.kernels.upsample import upsample2x
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -150,29 +151,6 @@ class Downsample(nn.Module):
         return (y + _rnd(self.conv.bias, dt)).to(dt)
 
 
-def _upsample2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Half of a separable 2x trilinear upsample along one axis (half-pixel
-    centres, edge clamp): out[2i] = 0.75 x[i] + 0.25 x[i-1], out[2i+1] =
-    0.75 x[i] + 0.25 x[i+1], clamped at the ends."""
-    n = x.shape[axis]
-    lo = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], axis)
-    hi = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], axis)
-    even = 0.75 * x + 0.25 * lo
-    odd = 0.75 * x + 0.25 * hi
-    shape = list(x.shape)
-    shape[axis] *= 2
-    return torch.stack([even, odd], axis + 1).reshape(shape)
-
-
-def upsample_trilinear(x: torch.Tensor) -> torch.Tensor:
-    """2x trilinear upsample of ``[B, X, Y, Z, C]``: f32 cascade over the
-    three axes, one rounding to x's dtype (as ``_xla_upsample``)."""
-    y = x.float()
-    for ax in (1, 2, 3):
-        y = _upsample2x_axis(y, ax)
-    return y.to(x.dtype)
-
-
 class ConcatConv3D(nn.Module):
     """Skip fusion: concat the decoder stream with the encoder skip, then a
     1^3 conv (flax Dense ``fuse``) to ``dim``."""
@@ -243,7 +221,7 @@ class UNeXT3D(nn.Module):
             x = getattr(self, f"down{s}")(x)
         x = self._stage(x, "bottleneck", self.depths[kd])
         for s in range(kd):
-            x = upsample_trilinear(x)
+            x = upsample2x(x)
             x = getattr(self, f"concat{s}")(x, skips[kd - 1 - s])
             x = self._stage(x, f"dec{s}", self.depths[kd + 1 + s])
         return ln_head(x, self.final_norm.weight, self.final_norm.bias,

@@ -1,6 +1,8 @@
 """Static sliding-window tile grid (numpy; copied from
 ``skoots_tpu/ops/cropper.py``): stride = crop - 2*overlap, edge tiles
-clamped to ``shape - crop``, plus the canonical tile-size ladder."""
+clamped to ``shape - crop``, plus the canonical tile-size ladder, rounded
+up (tiles reflect-padded past a short axis) or down (tiles sliced inside
+it)."""
 
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ def crop_origins(
     return [tuple(int(g[idx]) for g in grids) for idx in np.ndindex(grids[0].shape)]
 
 
+def effective_crop_size(
+    spatial_shape: Sequence[int], crop_size: Sequence[int]
+) -> Tuple[int, ...]:
+    return tuple(min(c, s) for c, s in zip(crop_size, spatial_shape))
+
+
 # Canonical tile ladder: a volume axis shorter than the requested crop is
 # rounded UP to one of these sizes (and reflect-padded), so differently
 # sized volumes share tile shapes. Consecutive gaps are <= 1.34x.
@@ -61,6 +69,18 @@ def bucket_up(size: int) -> int:
     return ((size + 127) // 128) * 128
 
 
+def bucket_down(size: int) -> int:
+    """Largest canonical tile size <= ``size`` (sizes < 4 pass through)."""
+    if size < 4:
+        return size
+    prev = _BUCKETS[0]
+    for b in _BUCKETS:
+        if b > size:
+            return prev
+        prev = b
+    return prev
+
+
 def bucketed_crop_size(
     crop_size: Sequence[int], spatial_shape: Sequence[int]
 ) -> Tuple[int, ...]:
@@ -68,4 +88,14 @@ def bucketed_crop_size(
     axis rounded UP to the bucket ladder."""
     return tuple(
         c if d >= c else bucket_up(d) for c, d in zip(crop_size, spatial_shape)
+    )
+
+
+def bucketed_crop_size_down(
+    crop_size: Sequence[int], spatial_shape: Sequence[int]
+) -> Tuple[int, ...]:
+    """Like :func:`bucketed_crop_size`, but short axes round DOWN (for
+    consumers that slice tiles directly and cannot exceed the volume)."""
+    return tuple(
+        c if d >= c else bucket_down(d) for c, d in zip(crop_size, spatial_shape)
     )

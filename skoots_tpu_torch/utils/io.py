@@ -1,4 +1,5 @@
-"""Volume I/O (port of ``skoots_tpu/utils/io.py``): TIFF, NPY, HDF5.
+"""Volume I/O (port of ``skoots_tpu/utils/io.py``): TIFF, NPY, HDF5, and the
+disk-backed ``.npy`` memmaps of out-of-core inference.
 
 Canonical layout: a volume is ``[X, Y, Z]`` on the host; a multi-page TIFF
 stores one page per Z, page rows = X, page cols = Y. Pillow (TIFF) and h5py
@@ -9,6 +10,7 @@ the port imports without them.
 from __future__ import annotations
 
 import os
+from typing import Tuple
 
 import numpy as np
 
@@ -68,3 +70,13 @@ def imsave(path: str, volume: np.ndarray) -> None:
     frames = [Image.fromarray(p) for p in vol]
     frames[0].save(path, save_all=True, append_images=frames[1:],
                    compression="tiff_deflate")
+
+
+def open_outofcore(path: str, shape: Tuple[int, ...], dtype: str) -> np.memmap:
+    """A new disk-backed host buffer: a flat ``.npy`` memmap (no chunk codec
+    on the write path), readable by ``np.load(path, mmap_mode="r")``."""
+    return np.lib.format.open_memmap(path, mode="w+", dtype=dtype, shape=shape)
+
+
+def load_outofcore(path: str) -> np.memmap:
+    return np.lib.format.open_memmap(path, mode="r+")

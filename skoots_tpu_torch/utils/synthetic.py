@@ -14,6 +14,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from skoots_tpu_torch.utils.device import resolve_device
+
 
 def make_tubes(
     shape: Tuple[int, int, int] = (128, 128, 16),
@@ -119,8 +121,9 @@ def render_tubes(
     centreline, bg 40 elsewhere, plus gaussian noise from a
     ``torch.Generator`` seeded with ``seed``, clipped to [0, 255]. The
     noise differs from the JAX package's (another generator); the tubes are
-    the same. Works one X slab at a time to bound temporaries."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    the same. ``device`` defaults to the first CUDA card (asking for CUDA
+    without one raises). Works one X slab at a time to bound temporaries."""
+    device = resolve_device(device)
     x, y, z = shape
     segs = torch.stack([torch.as_tensor(np.asarray(p0), dtype=torch.float32),
                         torch.as_tensor(np.asarray(p1), dtype=torch.float32)],

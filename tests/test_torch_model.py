@@ -16,7 +16,7 @@ from skoots_tpu.train.checkpoint import restore_params
 from skoots_tpu.utils.synthetic import make_tubes
 from skoots_tpu_torch.checkpoint import load_checkpoint
 from skoots_tpu_torch.models import cfg_to_model, load_flax_params, model_from_checkpoint
-from skoots_tpu_torch.models.unext import upsample_trilinear
+from skoots_tpu_torch.kernels.upsample import upsample2x_ref
 
 
 def _tiny_f32():
@@ -52,7 +52,7 @@ def test_tiny_f32_model_matches_flax(rng):
 def test_upsample_matches_xla_path(rng, dtype):
     x = rng.standard_normal((1, 6, 5, 4, 8)).astype(np.float32)
     want = np.asarray(_xla_upsample(jnp.asarray(x, dtype)).astype(jnp.float32))
-    got = upsample_trilinear(torch.from_numpy(x).to(getattr(torch, dtype)))
+    got = upsample2x_ref(torch.from_numpy(x).to(getattr(torch, dtype)))
     # the same f32 cascade and one rounding: exact
     np.testing.assert_array_equal(got.float().numpy(), want)
 

@@ -205,7 +205,7 @@ def test_pipeline_matches_jax_given_forward(phantom, assign_crop, compact):
     vol = np.zeros(SHAPE, np.float32)
     jrun = jdp.make_chunked_pipeline(_JaxOut(), SHAPE, **kw)
     want = np.asarray(jrun(jnp.asarray(out), jnp.asarray(vol), 0.0, 1.0))
-    trun = tdp.make_chunked_pipeline(_TorchOut(out), SHAPE, **kw)
+    trun = tdp.make_chunked_pipeline(_TorchOut(out), SHAPE, device="cpu", **kw)
     got = trun(vol, 0.0, 1.0).numpy()
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(want)) - 1 >= 3
@@ -248,7 +248,7 @@ def test_pipeline_tiling_matches_jax(phantom):
               cc_jumps_per_round=1, dilation_3d=1, dilation_2d=1)
     jrun = jdp.make_chunked_pipeline(_JaxPointwise(), shape, **kw)
     want = np.asarray(jrun(None, jnp.asarray(img), 41.8, 20.4))
-    got = tdp.make_chunked_pipeline(_TorchPointwise(), shape, **kw)(
+    got = tdp.make_chunked_pipeline(_TorchPointwise(), shape, device="cpu", **kw)(
         img, 41.8, 20.4).numpy()
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(want)) - 1 >= 2
@@ -309,7 +309,7 @@ def test_tiny_model_pipeline_matches_jax():
               prob_threshold=0.6)
     want = np.asarray(jdp.make_chunked_pipeline(model, shape, **kw)(
         params, jnp.asarray(vol), mean, std))
-    got = tdp.make_chunked_pipeline(tm, shape, **kw)(vol, mean, std).numpy()
+    got = tdp.make_chunked_pipeline(tm, shape, device="cpu", **kw)(vol, mean, std).numpy()
     n_want, n_got, ious = _match_instances(want, got)
     print(f"instances jax {n_want} torch {n_got}; min IoU {min(ious):.4f}; "
           f"{int((want != got).sum())} voxels differ")
@@ -337,8 +337,9 @@ def _straight_tubes(shape, segments, radius=5.0, zscale=3.0, seed=0):
 
 
 def test_cli_matches_jax_cli_on_bench_checkpoint(tmp_path):
-    """``skoots --image`` through both CLIs (JAX: ``--engine device``) with
-    the bench checkpoint at full width on three tubes 14-16 voxels apart.
+    """``skoots --image`` through both CLIs' whole-volume device engines
+    (``--engine device``; the port on ``--device cpu``) with the bench
+    checkpoint at full width on three tubes 14-16 voxels apart.
     The dilation stack is given (one in-plane pass, which keeps tubes that
     close apart), so neither CLI runs its probe forwards; the probe is held
     to JAX's exactly in test_probe_dilation_matches_jax."""
@@ -351,7 +352,8 @@ def test_cli_matches_jax_cli_on_bench_checkpoint(tmp_path):
         jax_imsave(str(tmp_path / f"{side}.tif"), img)
     jax_cli(["--image", str(tmp_path / "jax.tif"), "--engine", "device",
              "--spatial-shards", "0"] + common)
-    assert torch_cli(["--image", str(tmp_path / "torch.tif")] + common) == 0
+    assert torch_cli(["--image", str(tmp_path / "torch.tif"), "--engine", "device",
+                      "--device", "cpu"] + common) == 0
     want = jax_imread(str(tmp_path / "jax_instance_mask.tif"))
     got = jax_imread(str(tmp_path / "torch_instance_mask.tif"))
     for name in ("_skoots_benchmark.txt", "_skoots_phases.json"):
@@ -363,10 +365,8 @@ def test_cli_matches_jax_cli_on_bench_checkpoint(tmp_path):
     assert min(ious) >= 0.95
 
 
-@pytest.mark.parametrize("flag", [["--engine", "host"], ["--use-cached"],
-                                  ["--engine", "device-thrifty"],
-                                  ["--spatial-shards", "2"], ["--out-of-core"],
-                                  ["--experimental"]])
+@pytest.mark.parametrize("flag", [["--engine", "device-thrifty"],
+                                  ["--spatial-shards", "2"], ["--experimental"]])
 def test_cli_unported_options_raise(tmp_path, flag):
     """Engines and flags the port does not have yet raise instead of being
     ignored."""
@@ -374,4 +374,4 @@ def test_cli_unported_options_raise(tmp_path, flag):
     jax_imsave(str(vol), np.zeros((8, 8, 4), np.uint8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli(["--image", str(vol), "--pretrained-checkpoint",
-                   "runs/bench_ckpt.skoots", "--log", "0"] + flag)
+                   "runs/bench_ckpt.skoots", "--log", "0", "--device", "cpu"] + flag)
