@@ -7,13 +7,19 @@ them. In order:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once) and counts the tensor-core
+   instructions (HMMA / HGMMA) of the bf16 block tail, depthwise conv and
+   stem in the library's SASS (``cuobjdump -sass``; none fails);
 3. compares every kernel with its plain PyTorch version on the card, at the
    shapes the main paths give it, on seeded random inputs, and times the
    kernel, the plain version and, where one PyTorch call computes the same
-   function, that call, with CUDA events (median of several runs); checks
-   that the block tail's and LN head's autograd backward is exactly the
-   autograd of their plain compositions;
+   function, that call, with CUDA events (median of several runs); the
+   depthwise conv and the block tail also at the host engine's and the
+   training path's shapes, ragged shapes, k = 3 and f32, the block tail
+   beside its plain cuBLAS composition; checks the depthwise conv's bf16
+   input gradient against its plain composition, and that the block
+   tail's and LN head's autograd backward is exactly the autograd of their
+   plain compositions;
 4. the two microbenchmarks (``skoots_tpu_torch.tools.bench_fma_rate`` and
    ``bench_loadfma``), each checked against its plain version, with their
    rates;
@@ -75,12 +81,43 @@ HOST_VOLUME = (256, 256, 256)
 # host engine's 256x256x20 tile, and of the training crop at batch 2
 UPSAMPLE_SHAPES = ((1, 64, 64, 24, 128), (1, 128, 128, 48, 64), (1, 64, 64, 5, 128),
                    (1, 128, 128, 10, 64), (2, 24, 24, 8, 128), (2, 48, 48, 16, 64))
+# the depthwise conv at every shape the three paths give it: ([B, X, Y, Z],
+# input channels, output channels, k, dtype): the bench tile's four levels,
+# the host engine's 256x256x20 tile, the training crop's, then k = 3 at
+# batch 2 on ragged X, Y, Z, and one f32 shape (the FP32 kernel)
+DWCONV_CASES = (
+    ((1, 256, 256, 96), 1, 32, 7, "bf16"), ((1, 256, 256, 96), 32, 32, 7, "bf16"),
+    ((1, 128, 128, 48), 64, 64, 7, "bf16"), ((1, 64, 64, 24), 128, 128, 7, "bf16"),
+    ((1, 256, 256, 20), 1, 32, 7, "bf16"), ((1, 256, 256, 20), 32, 32, 7, "bf16"),
+    ((1, 128, 128, 10), 64, 64, 7, "bf16"), ((1, 64, 64, 5), 128, 128, 7, "bf16"),
+    ((1, 96, 96, 32), 1, 32, 7, "bf16"), ((1, 96, 96, 32), 32, 32, 7, "bf16"),
+    ((1, 48, 48, 16), 64, 64, 7, "bf16"), ((1, 24, 24, 8), 128, 128, 7, "bf16"),
+    ((2, 40, 36, 20), 32, 32, 3, "bf16"), ((1, 48, 48, 16), 64, 64, 7, "f32"),
+)
+# the block tail: (V, C, dtype) for the same three paths' levels, then V
+# that no row tile divides (128 rows a block at C = 32 and 64, 64 at 128)
+# and one f32 shape (the FP32 kernel)
+TAIL_CASES = (
+    (256 * 256 * 96, 32, "bf16"), (128 * 128 * 48, 64, "bf16"), (64 * 64 * 24, 128, "bf16"),
+    (256 * 256 * 20, 32, "bf16"), (128 * 128 * 10, 64, "bf16"), (64 * 64 * 5, 128, "bf16"),
+    (96 * 96 * 32, 32, "bf16"), (48 * 48 * 16, 64, "bf16"), (24 * 24 * 8, 128, "bf16"),
+    (100003, 32, "bf16"), (12347, 64, "bf16"), (3001, 128, "bf16"), (4173, 64, "f32"),
+)
+# the block tail's work on the FP32 pipe, in instructions (issue slots of
+# one lane): per hidden value the bias add, three roundings, an erf (about
+# 9) and the GELU's 3 -- 16; per channel of the LayerNorm 8 (sum, centre,
+# square and sum, scale, affine, round); per output value 7 (bias, layer
+# scale and residual with their four roundings)
+TAIL_FP32_PER_HIDDEN, TAIL_FP32_PER_LN, TAIL_FP32_PER_OUT = 16, 8, 7
 REPEATS = 5
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
-# FP32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
+# FP32 FLOP/s outside the tensor cores (an FMA counts 2, so other
+# instructions issue at half of it), dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+# the hand-written kernels that must run on the tensor cores (bf16)
+TENSOR_CORE_KERNELS = ("tail_tc_kernel", "dwconv3d_tc_kernel", "stem_gemm_kernel")
 
 
 def _need(cond: bool, what: str) -> None:
@@ -135,12 +172,38 @@ def _randn(rng, shape, scale=1.0, dtype=None, device="cuda"):
 
 
 def bound(moved: float, fp32_flops: float = 0.0, tensor_flops: float = 0.0):
-    """(least ms, what bounds it): the larger of the bytes moved over the
+    """(least ms, what bounds it): the largest of the bytes moved over the
     HBM rate and the operations over their type's peak (FP32 outside the
-    tensor cores; bf16 matrix products on the tensor cores)."""
+    tensor cores; bf16 products on the tensor cores). The two pipes run at
+    once, so operations of both types cost the longer of their times."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (fp32_flops / FP32_FLOP_PER_S + tensor_flops / BF16_TENSOR_FLOP_PER_S) * 1e3
+    t_ops = max(fp32_flops / FP32_FLOP_PER_S, tensor_flops / BF16_TENSOR_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_core_sass(lib_path) -> dict:
+    """HMMA / HGMMA instructions of each tensor-core kernel instantiation in
+    the built library (``cuobjdump -sass``); raises where one has none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(%s)ILi(\d+)E" % "|".join(TENSOR_CORE_KERNELS), line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    for kernel in TENSOR_CORE_KERNELS:
+        found = {k: v for k, v in counts.items() if k.startswith(kernel + "<")}
+        _need(bool(found) and all(v > 0 for v in found.values()),
+              f"{kernel}: no tensor-core instructions in the SASS ({found})")
+    return counts
 
 
 def nbytes(*tensors) -> int:
@@ -148,7 +211,7 @@ def nbytes(*tensors) -> int:
 
 
 def _record(results, name, source, replaces, err, err_abs, tol, unit, ms,
-            plain_ms, least, library_ms=None):
+            plain_ms, least, library_ms=None, note=""):
     """Print one kernel-vs-plain comparison, fail above ``tol``, and sum it
     into the kernel's entry of ``results`` (times and bounds add up over
     the shapes checked; ``bound_by`` is the largest shape's)."""
@@ -156,7 +219,7 @@ def _record(results, name, source, replaces, err, err_abs, tol, unit, ms,
     lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
     print(f"kernel {name}: max err {err:.6g} {unit} (bound {tol:g}) "
           f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms{lib} "
-          f"least {least[0]:.4f} ms ({least[1]}) {'ok' if ok else 'FAIL'}", flush=True)
+          f"least {least[0]:.4f} ms ({least[1]}){note} {'ok' if ok else 'FAIL'}", flush=True)
     _need(ok, f"{name}: error {err} {unit} above bound {tol}")
     for r in results:
         if r["name"] == name:
@@ -186,6 +249,7 @@ def check_kernels() -> list:
     from skoots_tpu_torch.kernels.mlp import (
         mlp_block_tail,
         mlp_block_tail_ref,
+        xla_tail,
     )
     from skoots_tpu_torch.kernels.propagate import propagate, propagate_ref
     from skoots_tpu_torch.kernels.upsample import upsample2x, upsample2x_ref
@@ -198,45 +262,55 @@ def check_kernels() -> list:
     def record(*args, **kwargs):
         _record(results, *args, **kwargs)
 
-    # 1. depthwise 7^3 conv: stem (1 -> 32, channel stride 0), then the
-    #    three block widths at their resolutions; bound 1 bf16 ulp. Library
-    #    call: cuDNN's bf16 conv3d on the channels-last view (grouped per
-    #    channel; the stem a dense 1 -> 32 conv)
-    for shape, cin in (((1, tx, ty, tz), 1), ((1, tx, ty, tz), 32),
-                       ((1, tx // 2, ty // 2, tz // 2), 64),
-                       ((1, tx // 4, ty // 4, tz // 4), 128)):
-        c = max(cin, 32)
-        x = _randn(rng, (*shape, cin), dtype=bf)
-        w = _randn(rng, (7, 7, 7, c), 1 / np.sqrt(343)).to(bf).float()
-        b = _randn(rng, (c,), 0.1).to(bf).float()
+    # 1. depthwise conv (DWCONV_CASES): bf16 within 1 bf16 ulp of
+    #    max(|plain|, rms(plain)), f32 within 1e-5 of max|plain| (f32 sums
+    #    of the same products in another order). Least work: bf16 taps on
+    #    the tensor cores (each product of two bf16 values is exact in f32),
+    #    f32 taps on the FP32 pipe. Library call: cuDNN's conv3d on the
+    #    channels-last view (grouped per channel; the stem a dense 1 -> C)
+    for shape, cin, c, k, dtn in DWCONV_CASES:
+        dt = bf if dtn == "bf16" else torch.float32
+        x = _randn(rng, (*shape, cin), dtype=dt)
+        w = _randn(rng, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
+        b = _randn(rng, (c,), 0.1).to(dt).float()
         got = dwconv3d(x, w, b)
         ref = dwconv3d_ref(x, w, b)
         torch.cuda.synchronize()
         err_abs = float((got.float() - ref.float()).abs().max())
+        if dt == bf:
+            err, tol, unit = bf16_ulps(got, ref), 1.0, "bf16 ulp"
+            ops = {"tensor_flops": 2.0 * k ** 3 * got.numel()}
+        else:
+            err, tol, unit = err_abs / float(ref.abs().max()), 1e-5, "of max|plain|"
+            ops = {"fp32_flops": 2.0 * k ** 3 * got.numel()}
         xv = x.permute(0, 4, 1, 2, 3)
-        wl = w.permute(3, 0, 1, 2).unsqueeze(1).to(bf).contiguous()
-        bl = b.to(bf)
+        wl = w.permute(3, 0, 1, 2).unsqueeze(1).to(dt).contiguous()
+        bl = b.to(dt)
         groups = 1 if cin == 1 else c
         record("dwconv3d", "skoots_tpu_torch/csrc/dwconv.cu",
-               "skoots_tpu/kernels/dwconv.py:334", bf16_ulps(got, ref), err_abs, 1.0,
-               f"bf16 ulp at {tuple(x.shape)}->{c}",
+               "skoots_tpu/kernels/dwconv.py:334", err, err_abs, tol,
+               f"{unit} at {tuple(x.shape)}->{c} k={k} {dtn}",
                _time_ms(lambda: dwconv3d(x, w, b)),
                _time_ms(lambda: dwconv3d_ref(x, w, b)),
-               bound(nbytes(x, w, b, got), fp32_flops=2.0 * 343 * got.numel()),
-               _time_ms(lambda: F.conv3d(xv, wl, bl, padding=3, groups=groups)))
+               bound(nbytes(x, w, b, got), **ops),
+               _time_ms(lambda: F.conv3d(xv, wl, bl, padding=k // 2, groups=groups)))
         del x, got, ref, xv
 
-    # 2. fused block tail at the three widths (V = voxels of one tile at
-    #    that resolution); bound atol 4e-3, rtol 1e-3
-    for v, c in ((tx * ty * tz, 32), (tx * ty * tz // 8, 64),
-                 (tx * ty * tz // 64, 128)):
-        x = _randn(rng, (v, c), dtype=bf)
-        s = _randn(rng, (v, c), 0.1, dtype=bf)
+    # 2. fused block tail (TAIL_CASES); bound atol 4e-3, rtol 1e-3. Least
+    #    work: the bytes, the two products on the tensor cores, and the
+    #    LayerNorm, GELU and roundings on the FP32 pipe (TAIL_FP32_*). The
+    #    plain composition xla_tail (two cuBLAS GEMMs and elementwise
+    #    kernels) is timed as a yardstick: no single library call computes
+    #    the function, so the JSON line's library_ms stays null
+    for v, c, dtn in TAIL_CASES:
+        dt = bf if dtn == "bf16" else torch.float32
+        x = _randn(rng, (v, c), dtype=dt)
+        s = _randn(rng, (v, c), 0.1, dtype=dt)
         ls = _randn(rng, (c,), 0.1) + 1.0
         lb = _randn(rng, (c,), 0.1)
-        w1 = _randn(rng, (c, 4 * c), 1 / np.sqrt(c), dtype=bf)
+        w1 = _randn(rng, (c, 4 * c), 1 / np.sqrt(c), dtype=dt)
         b1 = _randn(rng, (4 * c,), 0.1)
-        w2 = _randn(rng, (4 * c, c), 1 / np.sqrt(4 * c), dtype=bf)
+        w2 = _randn(rng, (4 * c, c), 1 / np.sqrt(4 * c), dtype=dt)
         b2 = _randn(rng, (c,), 0.1)
         g = torch.full((c,), 0.1, device="cuda")
         args = (x, s, ls, lb, w1, b1, w2, b2, g)
@@ -246,14 +320,18 @@ def check_kernels() -> list:
         diff = (got.float() - ref.float()).abs()
         err_abs = float(diff.max())
         excess = float((diff - 1e-3 * ref.float().abs()).max())
-        # least time: the bytes, or the two bf16 matrix products on the
-        # tensor cores (LayerNorm and GELU not counted)
+        fp32 = v * c * (4 * TAIL_FP32_PER_HIDDEN + TAIL_FP32_PER_LN + TAIL_FP32_PER_OUT)
+        if dt == bf:
+            ops = {"tensor_flops": 16.0 * v * c * c, "fp32_flops": 2.0 * fp32}
+        else:
+            ops = {"fp32_flops": 16.0 * v * c * c + 2.0 * fp32}
+        comp_ms = _time_ms(lambda: xla_tail(*args))
         record("mlp_block_tail", "skoots_tpu_torch/csrc/mlp.cu",
                "skoots_tpu/kernels/mlp.py:99", excess, err_abs, 4e-3,
-               f"(|d| - 1e-3|ref|) at V={v} C={c}",
+               f"(|d| - 1e-3|ref|) at V={v} C={c} {dtn}",
                _time_ms(lambda: mlp_block_tail(*args)),
                _time_ms(lambda: mlp_block_tail_ref(*args)),
-               bound(nbytes(*args, got), tensor_flops=16.0 * v * c * c))
+               bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
         del args, x, s, got, ref, diff
 
     # 3. fused final LN + 32 -> 32 head over one full-resolution tile;
@@ -727,7 +805,27 @@ def check_train_kernels(results: list) -> None:
                 bound(nbytes(masks, pts_t, ids_t, *got), fp32_flops=11.0 * pairs))
         del got, ref
 
-    # 3. autograd wiring: each wrapper's gradients are exactly the autograd
+    # 3. the depthwise conv's bf16 input gradient (the forward kernel on the
+    #    cotangent with tap-flipped weights) against its plain composition,
+    #    at the training levels; 1 bf16 ulp
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
+
+    for (sx, sy, sz), c in (((cx, cy, cz), 32), ((cx // 2, cy // 2, cz // 2), 64),
+                            ((cx // 4, cy // 4, cz // 4), 128)):
+        x = _randn(rng, (1, sx, sy, sz, c), dtype=bf).requires_grad_()
+        w = _randn(rng, (7, 7, 7, c), 1 / np.sqrt(343)).to(bf).float()
+        b = _randn(rng, (c,), 0.1).to(bf).float()
+        g = _randn(rng, (1, sx, sy, sz, c), 1e-3, dtype=bf)
+        (dx,) = torch.autograd.grad(dwconv3d(x, w, b), x, g)
+        want = dwconv3d_ref(g, torch.flip(w, (0, 1, 2)), torch.zeros_like(b))
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(dx, want)
+        print(f"dwconv3d input gradient at {(sx, sy, sz)} C={c} bf16: "
+              f"max err {ulps:.3g} bf16 ulp (bound 1)", flush=True)
+        _need(dx.dtype == bf and ulps <= 1.0, f"dwconv3d input gradient at C={c}: {ulps} ulp")
+        del x, g, dx, want
+
+    # 4. autograd wiring: each wrapper's gradients are exactly the autograd
     #    of its plain composition at the same inputs (the backward
     #    recomputes from them), at the path's widths
     def same_grads(fn, comp, args):
@@ -973,6 +1071,8 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     print(f"build: {time.time() - t0:.1f} s -> {_build.library_path()}", flush=True)
+    print(f"tensor-core instructions (cuobjdump -sass): "
+          f"{json.dumps(tensor_core_sass(_build.library_path()))}", flush=True)
 
     results = check_kernels()
     check_microbenchmarks(results)

@@ -83,3 +83,63 @@ __device__ __forceinline__ void warp_layer_norm(const T* __restrict__ xrow,
     hrow[c] = rnd<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[i], inv), ls[c]), lb[c]));
   }
 }
+
+// ---- Hopper building blocks (inline PTX, sm_80+ instructions) -------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; `bytes` < 16 zero-fills the
+// rest (0: the destination becomes 16 zero bytes, the source is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// all but the newest N committed groups of this thread have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8; register i holds matrix i (lane t: row t / 4,
+// elements 2 (t % 4) and 2 (t % 4) + 1; with .trans, column t / 4 and rows
+// 2 (t % 4), 2 (t % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a * b on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col),
+// D 16x8 f32. Fragments (g = lane / 4, q = lane % 4): a0 (row g, k 2q, 2q+1),
+// a1 (row g+8, same k), a2 (row g, k 2q+8, 2q+9), a3 (row g+8, k 2q+8, 2q+9);
+// b0 (k 2q, 2q+1; col g), b1 (k 2q+8, 2q+9; col g); d0, d1 (row g, cols 2q,
+// 2q+1), d2, d3 (row g+8, same cols). The lower k / column is the low half.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats (exact in bf16, or rounded to nearest even) as one bf16 pair,
+// `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}

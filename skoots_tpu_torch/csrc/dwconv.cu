@@ -5,15 +5,47 @@
 // same function). Same numerics: f32 accumulation of the k^3 taps, the bias
 // added in f32, ONE rounding to the storage type at the end.
 //
-// What bounds it on the H100: at k = 7 every output costs 343 FMAs, so a
-// [256, 256, 96, 32] bf16 layer is ~69 GFMA against ~0.8 GB of traffic --
-// arithmetic (FP32 pipe), not HBM. The design therefore spends its effort on
-// operand reuse: a block stages a (TX+k-1) x (TY+k-1) x (TZ+k-1) halo tile of
-// CC channels in shared memory once, each thread owns one (x, y, channel)
-// column of TZ outputs in registers, and for every (dx, dy) tap pair it loads
-// the TZ+k-1 input values of its column once and reuses each for k dz taps.
-// The stem (a dense 1 -> C conv) reads the single input channel with a
-// channel stride of 0 instead of materialising the broadcast.
+// What bounds it on the H100: at k = 7 every output costs 343 FMAs, a
+// [256, 256, 96, 32] layer ~69 GFMA against ~0.8 GB of traffic. On the FP32
+// pipe that is 2.06 ms at the published peak; at bf16 every product of two
+// bf16 values is exact in f32, so the tensor cores (f32 accumulation) do the
+// same work, and then the bytes bind (0.24 ms).
+//
+// bf16 (`dwconv3d_tc_kernel`): the z taps of one channel and one (dx, dy)
+// form a 16x8 banded matrix T[i][j] = w[dx, dy, i - j] (0 <= i - j < k), so
+// 16 y rows x 8 output z of one x plane are D += A[16 y][16 z window] * T,
+// one mma.sync m16n8k16 (bf16, f32 sums; 7 of the 16 K lanes useful at
+// k = 7). A warp owns one channel and one 16 y x 8 z output column and
+// streams the input x planes: one A fragment (ldmatrix.x4) feeds the k dx
+// taps, whose outputs lie in the k planes xi + P - dx, kept as k register
+// accumulators, a ring indexed at compile time (the plane loop is unrolled
+// by k); the k^2 B fragments are built once in registers from the weights
+// (k = 7: 98 of the thread's 255 registers, so one block of 8 warps = 8
+// channels an SM). Each input plane is staged in shared memory
+// channel-major with z contiguous (16-byte loads of 8 channels,
+// transposed), starting at z0 - k/2 so every window starts on a 16-byte
+// boundary; each thread copies its items of the plane three ahead with
+// cp.async into a ring and transposes its own items once they land.
+// Output planes are staged through shared memory (double-
+// buffered: one barrier a step) and stored as 16-byte channel groups. At
+// one block an SM the step is bound by its instructions (staging, barrier,
+// output) as much as by the products, so per-step work is hoisted out of
+// the loop.
+// tests/test_torch_dwconv_banded.py states this indexing (the band, the
+// window start, the masks on ragged X, Y, Z) in torch and holds it against
+// the plain version.
+//
+// The stem at 32 channels (`stem_gemm_kernel`): an implicit GEMM, M = 16
+// output z, N = the 32 channels, K = the k^2 (dx, dy) groups of 8 dz lanes,
+// half the products of the banded form, which the card ran slower for the
+// stem (PERF.md); its indexing is stated in the same test file.
+//
+// f32, bf16 with C % 8 != 0 and stems of other than 32 channels
+// (`dwconv3d_kernel`): FP32 FMAs. A block
+// stages a (TX+k-1) x (TY+k-1) x (TZ+k-1) halo tile of CC channels in
+// shared memory, each thread owns one (x, y, channel) column of TZ outputs
+// and reuses each loaded input for the k dz taps. The tensor cores would
+// round f32 operands to TF32, which is not the function.
 #include "common.cuh"
 
 namespace {
@@ -104,10 +136,385 @@ dwconv3d_kernel(const T* __restrict__ x, const float* __restrict__ w,
     if (z0 + o < Z) ob[(long long)(z0 + o) * C] = from_f32<T>(acc[o] + bias);
 }
 
+// ---- bf16 on the tensor cores ----------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_WARPS = 8;  // = the channels of a block
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int TC_YT = 16;  // output y of a block: the mma's M
+constexpr int TC_ZT = 8;   // output z of a block: the mma's N
+constexpr int TC_ZW = 16;  // input z window: the mma's K
+constexpr int TC_ZP = 24;  // padded window row: 48 bytes, so the 8 rows of
+                           // an ldmatrix fall in distinct banks
+constexpr int TC_AHEAD = 3;  // input planes in flight ahead of the one computed
+constexpr int TC_DEPTH = TC_AHEAD + 1;  // ring of planes as loaded
+
+template <int K>
+struct DwTc {
+  static constexpr int P = K / 2;
+  static constexpr int YS = TC_YT + K - 1;      // staged input rows
+  static constexpr int PLANE = YS * TC_ZP;      // one channel's staged plane
+  static constexpr int BUF = TC_WARPS * PLANE;  // one staged x plane
+  static constexpr int ITEMS = (YS * TC_ZW + TC_THREADS - 1) / TC_THREADS;
+  static constexpr int OUT = TC_WARPS * TC_YT * TC_ZT;  // [ch][y][z]
+  static constexpr int RAW = ITEMS * TC_THREADS * 8;   // one plane as loaded (16 B an item)
+  static constexpr int SMEM = (2 * BUF + 2 * OUT + TC_DEPTH * RAW) * 2;
+};
+
+template <int K>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dwconv3d_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ b, bf16* __restrict__ out, int X, int Y,
+                   int Z, int C, int nxs, int xt) {
+  using D = DwTc<K>;
+  constexpr int P = D::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* buf = reinterpret_cast<bf16*>(smem_raw);  // [2][8 ch][YS][ZP]
+  bf16* osm0 = buf + 2 * D::BUF;                  // [2][8 ch][YT][ZT]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+
+  // block: (batch, x range, y block, z block, channel group), channels fastest
+  int r = blockIdx.x;
+  const int ncg = C / TC_WARPS, nzb = (Z + TC_ZT - 1) / TC_ZT, nyb = (Y + TC_YT - 1) / TC_YT;
+  const int cg = r % ncg;
+  r /= ncg;
+  const int zb = r % nzb;
+  r /= nzb;
+  const int yb = r % nyb;
+  r /= nyb;
+  const int xsp = r % nxs, bi = r / nxs;
+  const int c0 = cg * TC_WARPS, z0 = zb * TC_ZT, y0 = yb * TC_YT;
+  const int xs = xsp * xt, xe = min(X, xs + xt);
+  const int c = c0 + warp;
+
+  // the k^2 banded B fragments of channel c: b0 = T[2q, 2q+1][g],
+  // b1 = T[2q+8, 2q+9][g], T[i][j] = w[dx, dy, i - j, c]
+  uint32_t bfr[K * K][2];
+#pragma unroll
+  for (int t = 0; t < K * K; ++t) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int dz = 2 * q + (e & 1) + (e >> 1) * 8 - g;
+      v[e] = dz >= 0 && dz < K ? w[(long long)(t * K + dz) * C + c] : 0.f;
+    }
+    bfr[t][0] = pack_bf16x2(v[0], v[1]);
+    bfr[t][1] = pack_bf16x2(v[2], v[3]);
+  }
+  const float bias = b[c];
+
+  // staging: the thread's items are window row i / 16 (y0 - P + row) and
+  // column i % 16 (z0 - P + column) of every x plane, 8 channels of one
+  // voxel. Each thread copies its items of
+  // plane xi + AHEAD into a ring (cp.async) and later transposes the same
+  // items into the channel planes, so the ring needs no barrier. Sources
+  // advance one x plane a step; an item outside the volume (ok false) is
+  // never read and stages zeros.
+  const long long plane_stride = (long long)Y * Z * C;
+  const int nsteps = xe - xs + K - 1;
+  uint4* raw0 = reinterpret_cast<uint4*>(osm0 + 2 * D::OUT);  // [DEPTH][ITEMS][THREADS]
+  const bf16* src[D::ITEMS];  // the item in the next plane to fetch (step 0: xs - P)
+  bool ok[D::ITEMS];
+  int dst_off[D::ITEMS];      // the item in a staged plane
+#pragma unroll
+  for (int j = 0; j < D::ITEMS; ++j) {
+    const int i = tid + j * TC_THREADS;
+    const int gy = y0 - P + i / TC_ZW, gz = z0 - P + i % TC_ZW;
+    ok[j] = i < D::YS * TC_ZW && gy >= 0 && gy < Y && gz >= 0 && gz < Z;
+    src[j] = x + (((long long)bi * X + xs - P) * Y * Z + (long long)gy * Z + gz) * C + c0;
+    dst_off[j] = i < D::YS * TC_ZW ? (i / TC_ZW) * TC_ZP + i % TC_ZW : -1;
+  }
+  // copy plane xi (step t) into its ring slot and advance the sources; one
+  // commit group a step
+  auto fetch = [&](int xi, int t) {
+    uint4* raw = raw0 + (t % TC_DEPTH) * D::ITEMS * TC_THREADS + tid;
+    const bool in = t < nsteps && xi >= 0 && xi < X;
+#pragma unroll
+    for (int j = 0; j < D::ITEMS; ++j) {
+      if (in && ok[j]) cp_async16(raw + j * TC_THREADS, src[j], 16);
+      src[j] += plane_stride;
+    }
+    cp_async_commit();
+  };
+  // plane xi (step t), landed, into the channel planes of `dst`
+  auto stage = [&](int xi, int t, bf16* dst) {
+    const uint4* raw = raw0 + (t % TC_DEPTH) * D::ITEMS * TC_THREADS + tid;
+    const bool in = xi >= 0 && xi < X;
+    unsigned short* d0 = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+    for (int j = 0; j < D::ITEMS; ++j) {
+      if (dst_off[j] < 0) continue;
+      unsigned short* d = d0 + dst_off[j];
+      const uint4 v = in && ok[j] ? raw[j * TC_THREADS] : make_uint4(0, 0, 0, 0);
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(&v);
+#pragma unroll
+      for (int ch = 0; ch < TC_WARPS; ++ch) d[ch * D::PLANE] = h[ch];
+    }
+  };
+  // the thread's output voxel (y, z) = (tid / 8, tid % 8) in output plane xs
+  const int oy = y0 + tid / TC_ZT, oz = z0 + tid % TC_ZT;
+  const bool o_ok = tid < TC_YT * TC_ZT && oy < Y && oz < Z;
+  bf16* dst_out = out + ((((long long)bi * X + xs) * Y + oy) * Z + oz) * C + c0;
+  const long long out_plane = (long long)Y * Z * C;
+
+  // acc[s]: the output plane xo with (xo - xs) mod K == s. Input plane xi
+  // adds into the planes xi + P - dx; planes outside [xs, xe) take their
+  // sums too but are never stored, and every slot is zeroed when its plane
+  // is complete, before the plane K further on first adds into it.
+  float acc[K][4];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < TC_AHEAD; ++t) fetch(xs - P + t, t);
+  cp_async_wait_group<TC_AHEAD - 1>();
+  stage(xs - P, 0, buf);
+  __syncthreads();
+  // unrolled by K, so the slots are compile-time register indices
+  for (int t0 = 0; t0 < nsteps; t0 += K) {
+#pragma unroll
+    for (int rr = 0; rr < K; ++rr) {
+      const int t = t0 + rr;
+      if (t >= nsteps) break;
+      const int xi = xs - P + t;
+      bf16* osm = osm0 + (t & 1) * D::OUT;
+      fetch(xi + TC_AHEAD, t + TC_AHEAD);
+      if (xi >= 0 && xi < X) {
+        const bf16* plane = buf + (t & 1) * D::BUF + warp * D::PLANE;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+          uint32_t a[4];
+          ldmatrix_x4(a, plane + (dy + (lane & 15)) * TC_ZP + (lane >> 4) * 8);
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx)
+            mma_bf16_16816(acc[(rr - dx + K) % K], a, bfr[dx * K + dy][0], bfr[dx * K + dy][1]);
+        }
+      }
+      // output plane xo = xi - P is complete: + bias, one rounding
+      float(&done)[4] = acc[(rr + 1) % K];
+      const int xo = xi - P;
+      if (xo >= xs) {
+        bf16* o = osm + warp * TC_YT * TC_ZT;
+        *reinterpret_cast<uint32_t*>(o + g * TC_ZT + 2 * q) =
+            pack_bf16x2(done[0] + bias, done[1] + bias);
+        *reinterpret_cast<uint32_t*>(o + (g + 8) * TC_ZT + 2 * q) =
+            pack_bf16x2(done[2] + bias, done[3] + bias);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) done[e] = 0.f;
+      cp_async_wait_group<TC_AHEAD - 1>();  // this thread's copies of plane xi + 1
+      stage(xi + 1, t + 1, buf + ((t + 1) & 1) * D::BUF);
+      // one barrier a step: plane xi + 1 and output plane xo are staged,
+      // and every warp is done with plane xi and with the output stage of
+      // step t - 1, which the next step overwrites
+      __syncthreads();
+      // 16-byte channel groups of the output plane, a voxel a thread
+      if (xo >= xs) {
+        if (o_ok) {
+          uint4 v;
+          unsigned short* e = reinterpret_cast<unsigned short*>(&v);
+          const unsigned short* os = reinterpret_cast<const unsigned short*>(osm);
+#pragma unroll
+          for (int ch = 0; ch < TC_WARPS; ++ch) e[ch] = os[ch * TC_YT * TC_ZT + tid];
+          *reinterpret_cast<uint4*>(dst_out) = v;
+        }
+        dst_out += out_plane;
+      }
+    }
+  }
+}
+
+// ---- the stem (1 -> 32) as an implicit GEMM on the tensor cores -----------
+//
+// out[v, c] = sum_t x[v + t] w[t, c]: M = 16 output z of one (x, y), N = the
+// 32 channels, K = the k^2 (dx, dy) groups of 8 dz lanes (dz >= k zero),
+// two groups a k-step. A block of 8 warps (8 y rows) walks (x, y, z) tiles
+// of a persistent grid; w sits in shared memory once a block. The input's
+// halo is staged twice, the second copy shifted by one element, so that
+// every lane's pair of dz values is one aligned 4-byte load.
+constexpr int SG_WARPS = 8;
+constexpr int SG_THREADS = SG_WARPS * 32;
+constexpr int SG_C = 32;   // output channels
+constexpr int SG_ZT = 16;  // output z of a tile (the mma's M)
+constexpr int SG_NS = SG_C + 8;  // padded row of w (80 bytes)
+
+template <int K>
+struct StemGemm {
+  static constexpr int P = K / 2;
+  static constexpr int KSTEPS = (K * K + 1) / 2;
+  static constexpr int KP = KSTEPS * 16;          // padded taps
+  static constexpr int HY = SG_WARPS + K - 1;     // halo rows
+  static constexpr int HZ = SG_ZT + 8;            // halo row: 16 + 7 z, + 1 shift
+  static constexpr int HALO = K * HY * HZ;        // one copy (elements)
+  static constexpr int OUTS = SG_C + 8;           // padded output row
+  static constexpr int SMEM = (KP * SG_NS + 2 * HALO + SG_WARPS * SG_ZT * OUTS) * 2;
+};
+
+template <int K>
+__global__ void __launch_bounds__(SG_THREADS)
+stem_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ b, bf16* __restrict__ out, int B, int X, int Y,
+                 int Z) {
+  using S = StemGemm<K>;
+  constexpr int P = S::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [KP][NS]: row group*8 + dz
+  bf16* halo = ws + S::KP * SG_NS;                // [2][K][HY][HZ]
+  bf16* os = halo + 2 * S::HALO;                  // [warps][16 z][OUTS]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  for (int i = tid; i < S::KP * SG_C; i += SG_THREADS) {
+    const int k = i / SG_C, c = i % SG_C, grp = k / 8, dz = k % 8;
+    ws[k * SG_NS + c] = __float2bfloat16_rn(
+        grp < K * K && dz < K ? w[((long long)grp * K + dz) * SG_C + c] : 0.f);
+  }
+  // the halo's columns past 16 + k - 1 z (read as dz >= k lanes, whose w
+  // rows are 0) stay zero, never garbage
+  for (int i = tid; i < 2 * S::HALO; i += SG_THREADS) halo[i] = __float2bfloat16_rn(0.f);
+  const float2 bias[4] = {
+      make_float2(b[2 * q], b[2 * q + 1]), make_float2(b[8 + 2 * q], b[9 + 2 * q]),
+      make_float2(b[16 + 2 * q], b[17 + 2 * q]), make_float2(b[24 + 2 * q], b[25 + 2 * q])};
+  // the lane's dz pair (2q, 2q+1) of rows g and g + 8 starts at halo z
+  // g + 2q: even in copy 0, odd ones aligned in copy 1 (shifted by one)
+  const bf16* hsrc = halo + (g & 1) * S::HALO + (g & 1);
+  const int kr = (lane & 7) + ((lane >> 3) & 1) * 8, nc = (lane >> 4) * 8;
+
+  const int nzt = (Z + SG_ZT - 1) / SG_ZT, nyt = (Y + SG_WARPS - 1) / SG_WARPS;
+  const long long ntiles = (long long)B * X * nyt * nzt;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    long long r = tile;
+    const int zt = (int)(r % nzt);
+    r /= nzt;
+    const int yt = (int)(r % nyt);
+    r /= nyt;
+    const int xo = (int)(r % X);
+    const int bi = (int)(r / X);
+    const int z0 = zt * SG_ZT, y0 = yt * SG_WARPS;
+    __syncthreads();  // the last tile's halo and output stage are read
+    for (int i = tid; i < K * S::HY * (SG_ZT + K - 1); i += SG_THREADS) {
+      const int hz = i % (SG_ZT + K - 1);
+      const int rest = i / (SG_ZT + K - 1);
+      const int hy = rest % S::HY, hx = rest / S::HY;
+      const int gx = xo - P + hx, gy = y0 - P + hy, gz = z0 - P + hz;
+      bf16 v = __float2bfloat16_rn(0.f);
+      if (gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z)
+        v = x[(((long long)bi * X + gx) * Y + gy) * Z + gz];
+      const int o = (hx * S::HY + hy) * S::HZ + hz;
+      halo[o] = v;
+      halo[S::HALO + o + 1] = v;
+    }
+    __syncthreads();
+    float acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < S::KSTEPS; ++s) {
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // group 2s (a0, a1) and 2s + 1 (a2, a3)
+        const int grp = 2 * s + h;
+        const int gg = grp < K * K ? grp : 0;  // a zero group: its w rows are 0
+        const bf16* row = hsrc + ((gg / K) * S::HY + warp + gg % K) * S::HZ + g + 2 * q;
+        a[2 * h] = *reinterpret_cast<const uint32_t*>(row);
+        a[2 * h + 1] = *reinterpret_cast<const uint32_t*>(row + 8);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        uint32_t bb[4];
+        ldmatrix_x4_trans(bb, ws + (s * 16 + kr) * SG_NS + nb * 16 + nc);
+        mma_bf16_16816(acc[2 * nb], a, bb[0], bb[1]);
+        mma_bf16_16816(acc[2 * nb + 1], a, bb[2], bb[3]);
+      }
+    }
+    // + bias, one rounding; 64-byte voxel rows through shared memory
+    bf16* o = os + warp * SG_ZT * S::OUTS;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      *reinterpret_cast<uint32_t*>(o + g * S::OUTS + n * 8 + 2 * q) =
+          pack_bf16x2(acc[n][0] + bias[n].x, acc[n][1] + bias[n].y);
+      *reinterpret_cast<uint32_t*>(o + (g + 8) * S::OUTS + n * 8 + 2 * q) =
+          pack_bf16x2(acc[n][2] + bias[n].x, acc[n][3] + bias[n].y);
+    }
+    __syncwarp();
+    const int gy = y0 + warp;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = lane + 32 * j;  // 16 voxels x 4 pieces of 16 bytes
+      const int m = i / 4, piece = i % 4;
+      if (gy < Y && z0 + m < Z)
+        *reinterpret_cast<uint4*>(out + ((((long long)bi * X + xo) * Y + gy) * Z + z0 + m) *
+                                            SG_C + piece * 8) =
+            *reinterpret_cast<const uint4*>(o + m * S::OUTS + piece * 8);
+    }
+  }
+}
+
+template <int K>
+int launch_stem_gemm(const void* x, const float* w, const float* b, void* out, int B, int X,
+                     int Y, int Z, cudaStream_t stream) {
+  using S = StemGemm<K>;
+  cudaError_t e = cudaFuncSetAttribute(stem_gemm_kernel<K>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stem_gemm_kernel<K>,
+                                                         SG_THREADS, S::SMEM)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)B * X * ((Y + SG_WARPS - 1) / SG_WARPS) *
+                          ((Z + SG_ZT - 1) / SG_ZT);
+  const long long cap = (long long)sms * per_sm;
+  stem_gemm_kernel<K><<<(unsigned)(tiles < cap ? tiles : cap), SG_THREADS, S::SMEM, stream>>>(
+      static_cast<const bf16*>(x), w, b, static_cast<bf16*>(out), B, X, Y, Z);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_tc(const void* x, const float* w, const float* b, void* out, int B, int X,
+              int Y, int Z, int C, cudaStream_t stream) {
+  using D = DwTc<K>;
+  cudaError_t e = cudaFuncSetAttribute(dwconv3d_tc_kernel<K>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  // split X so the grid covers the SMs about twice (each split re-reads
+  // k - 1 halo planes)
+  const long long base = (long long)B * ((Y + TC_YT - 1) / TC_YT) *
+                         ((Z + TC_ZT - 1) / TC_ZT) * (C / TC_WARPS);
+  long long nxs = (2LL * sms + base - 1) / base;
+  const long long max_split = (X + 7) / 8;
+  nxs = nxs < 1 ? 1 : (nxs > max_split ? max_split : nxs);
+  const int xt = (int)((X + nxs - 1) / nxs);
+  nxs = (X + xt - 1) / xt;
+  dwconv3d_tc_kernel<K><<<(unsigned)(base * nxs), TC_THREADS, D::SMEM, stream>>>(
+      static_cast<const bf16*>(x), w, b, static_cast<bf16*>(out), X, Y, Z, C, (int)nxs, xt);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int K>
 int launch(const void* x, const float* w, const float* b, void* out, int B,
            int X, int Y, int Z, int C, long long x_vstride,
            long long x_cstride, cudaStream_t stream) {
+  if ((long long)B * X * Y * Z * C == 0) return 0;
+  // bf16 on the tensor cores: the 32-channel stem, and depthwise layers
+  // whose 16-byte channel groups exist
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (sizeof(T) == 2 && aligned && x_cstride == 0 && x_vstride == 1 && C == SG_C)
+    return launch_stem_gemm<K>(x, w, b, out, B, X, Y, Z, stream);
+  if (sizeof(T) == 2 && aligned && x_cstride == 1 && x_vstride == C && C % TC_WARPS == 0)
+    return launch_tc<K>(x, w, b, out, B, X, Y, Z, C, stream);
   const int smem = smem_bytes<K>(sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
       dwconv3d_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

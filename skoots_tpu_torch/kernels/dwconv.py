@@ -4,9 +4,11 @@ its gradients.
 Forward: replaces ``skoots_tpu/kernels/dwconv.py::dwconv3d_pallas_v4`` (the
 TPU production kernel; ``dwconv3d_pallas`` and ``dwconv3d_pallas_v6``
 compute the same function in older TPU layouts). The Hopper kernel is
-``csrc/dwconv.cu``: FP32-FMA bound at k = 7 (343 taps per output), so it
-stages a halo tile in shared memory and reuses each loaded column for all
-k dz taps from registers (see the source header).
+``csrc/dwconv.cu``: at bf16 the k dz taps of each (dx, dy) are a 16x8
+banded matrix, so the taps run on the tensor cores (exact bf16 products,
+f32 sums; ``tests/test_torch_dwconv_banded.py`` states the decomposition);
+at f32 an FP32-FMA kernel that reuses each staged column for the k dz taps
+(see the source header).
 
 Weight gradient: replaces ``dwconv3d_wgrad_pallas_v2`` (the TPU default)
 and ``dwconv3d_wgrad_pallas`` (same function). The Hopper kernel is

@@ -3,7 +3,9 @@
 
 Replaces ``skoots_tpu/kernels/mlp.py::_mlp_call`` (body ``_kernel``). The
 Hopper kernel is ``csrc/mlp.cu``: the [V, 4C] hidden activation never
-reaches device memory, so the two GEMMs bound it (see the source header).
+reaches device memory; at bf16 both GEMMs run on the tensor cores and the
+erf-GELU epilogue on the FP32 pipe sets the pace, at f32 the GEMMs are
+scalar FP32 FMAs (see the source header).
 
 Rounding points of both versions, to the model dtype ``dt`` (identity at
 f32), as at ``mlp.py:78-95`` of the TPU kernel: after the LayerNorm affine

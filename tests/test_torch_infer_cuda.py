@@ -1,7 +1,9 @@
 """The host-streaming slice's CUDA kernels on the card: the stepped CC's
 one propagate launch per pass (the plain propagation never runs on a CUDA
 tensor), the upsample kernel bit for bit against its plain version with
-its autograd gradient, and the two microbenchmarks against theirs.
+its autograd gradient, the two microbenchmarks against theirs, and the
+depthwise conv and the block tail (bf16 on the tensor cores, f32 on the
+FP32 pipe) at ragged shapes against theirs.
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from skoots_tpu_torch.kernels import propagate as prop_mod
+from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
 from skoots_tpu_torch.kernels.microbench import (
     SHAPE,
     fma_chain,
@@ -23,6 +26,7 @@ from skoots_tpu_torch.kernels.microbench import (
     loadfma,
     loadfma_ref,
 )
+from skoots_tpu_torch.kernels.mlp import mlp_block_tail, mlp_block_tail_ref
 from skoots_tpu_torch.kernels.upsample import upsample2x, upsample2x_ref
 from skoots_tpu_torch.ops.flood_fill import label_components, make_label_components_stepped
 
@@ -102,3 +106,74 @@ def test_cuda_microbenchmarks_match_plain_versions(cuda_device):
         for chains in (1, 8):
             got = loadfma(buf, w, dynamic, chains, reps=3)
             assert torch.equal(got, loadfma_ref(buf, w, dynamic, chains)[None].expand_as(got))
+
+
+def _bf16_ulps(got, ref):
+    """max |got - ref| in bf16 ulps of max(|ref|, rms(ref)): both round one
+    f32 sum once, in another summation order."""
+    r = ref.float().abs()
+    scale = torch.maximum(r, r.square().mean().sqrt())
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale)[1] - 8)
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+@pytest.mark.cuda
+def test_cuda_dwconv_matches_plain_version_at_ragged_shapes(cuda_device):
+    """bf16 (tensor cores) within 1 bf16 ulp, f32 within 1e-5 of max|plain|:
+    k = 3, 5, 7, the stem (32 channels: the implicit GEMM; 64: the banded
+    kernel), batch 2, X, Y and Z that no tile divides; and
+    the bf16 input gradient (the kernel on the cotangent with flipped taps)
+    against its plain composition."""
+    rng = np.random.default_rng(3)
+    dwconv3d.launches = 0
+    cases = [((2, 9, 18, 20), 32, 32, 7), ((1, 13, 20, 5), 1, 32, 7),
+             ((2, 5, 9, 21), 1, 32, 5), ((1, 9, 18, 10), 1, 64, 7),
+             ((2, 7, 17, 10), 64, 64, 5), ((1, 11, 33, 24), 128, 128, 3),
+             ((1, 24, 24, 8), 128, 128, 7)]
+    for shape, cin, c, k in cases:
+        x32 = torch.from_numpy(rng.standard_normal((*shape, cin)).astype(np.float32))
+        w32 = torch.from_numpy((rng.standard_normal((k, k, k, c)) / k ** 1.5).astype(np.float32))
+        b32 = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32))
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(cuda_device, dt)
+            w, b = w32.to(cuda_device).to(dt).float(), b32.to(cuda_device).to(dt).float()
+            got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
+            assert got.dtype == dt and got.shape == ref.shape
+            if dt == torch.bfloat16:
+                assert _bf16_ulps(got, ref) <= 1.0, (shape, cin, k)
+            else:
+                err = float((got - ref).abs().max()) / float(ref.abs().max())
+                assert err <= 1e-5, (shape, cin, k, err)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 18, 20, 32)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16).requires_grad_()
+    w = torch.randn((7, 7, 7, 32), device=cuda_device).div(18.5).to(torch.bfloat16).float()
+    b = torch.zeros(32, device=cuda_device)
+    g = torch.randn(x.shape, device=cuda_device).to(torch.bfloat16)
+    (dx,) = torch.autograd.grad(dwconv3d(x, w, b), x, g)
+    want = dwconv3d_ref(g, torch.flip(w, (0, 1, 2)), b)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and _bf16_ulps(dx, want) <= 1.0
+    assert dwconv3d.launches == 2 * len(cases) + 2
+
+
+@pytest.mark.cuda
+def test_cuda_block_tail_matches_plain_version_at_ragged_shapes(cuda_device):
+    """bf16 (tensor cores) and f32 at the Pallas test's bound, at V that no
+    row tile divides (one row; a tile and a few rows; a large ragged V)."""
+    rng = np.random.default_rng(4)
+    mlp_block_tail.launches = 0
+    cases = [(100003, 32), (12347, 64), (3001, 128), (1, 32), (130, 128)]
+    for v, c in cases:
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+        args = [f(v, c), f(v, c) * 0.1, f(c) * 0.1 + 1.0, f(c) * 0.1,
+                f(c, 4 * c) / c ** 0.5, f(4 * c) * 0.1, f(4 * c, c) / (2 * c ** 0.5),
+                f(c) * 0.1, torch.full((c,), 0.5)]
+        for dt in (torch.bfloat16, torch.float32):
+            a = [t.to(cuda_device) for t in args]
+            for i in (0, 1, 4, 6):
+                a[i] = a[i].to(dt)
+            got, ref = mlp_block_tail(*a), mlp_block_tail_ref(*a)
+            assert got.dtype == dt and got.shape == ref.shape
+            torch.testing.assert_close(got.float(), ref.float(), atol=4e-3, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert mlp_block_tail.launches == 2 * len(cases)
