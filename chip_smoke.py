@@ -11,7 +11,9 @@ them. In order:
    instructions (HMMA / HGMMA) of the bf16 block tail, depthwise conv and
    stem in the library's SASS (``cuobjdump -sass``; none fails);
 3. compares every kernel with its plain PyTorch version on the card, at the
-   shapes the main paths give it, on seeded random inputs, and times the
+   shapes the main paths give it, on seeded random inputs (propagate also
+   on the main path's sparse mask: one 192-pass CC round on the 512^3
+   phantom's dilated skeleton), and times the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call, with CUDA events (median of several runs); the
    depthwise conv and the block tail also at the host engine's and the
@@ -35,9 +37,10 @@ them. In order:
 6. whole-volume path: ``infer.device_pipeline.make_chunked_pipeline`` on the
    bench checkpoint over the seeded 512^3 tube phantom rendered on the card,
    with ``bench.py``'s knobs -- launch counts set to 0 just before and read
-   just after; prints the phase split, the instance count against the
-   number of placed tubes, the CC rounds, the launch counts and peak device
-   memory;
+   just after (propagate: ``len(launch_plan(192))`` a CC round, the plain
+   propagation may not run); prints the phase split, the instance count
+   against the number of placed tubes, the CC rounds, the launch counts and
+   peak device memory;
 7. runs the same pipeline on a 128x128x64 block of the phantom on the card
    and on the CPU and compares the instances;
 8. one f32 train step of the full-width model on a 32x32x16 batch, on the
@@ -251,8 +254,15 @@ def check_kernels() -> list:
         mlp_block_tail_ref,
         xla_tail,
     )
-    from skoots_tpu_torch.kernels.propagate import propagate, propagate_ref
+    from skoots_tpu_torch.kernels.propagate import launch_plan, propagate, propagate_ref
     from skoots_tpu_torch.kernels.upsample import upsample2x, upsample2x_ref
+    from skoots_tpu_torch.tools.bench_propagate import (
+        SPARSE_PASSES,
+        active_share,
+        default_tile,
+        sparse_bound_ms,
+        sparse_case,
+    )
 
     rng = np.random.default_rng(SEED)
     bf = torch.bfloat16
@@ -381,6 +391,31 @@ def check_kernels() -> list:
            _time_ms(lambda: propagate(lab, fg, passes=4)), _time_ms(plain4),
            bound(nbytes(lab, fg, got)))
     del lab, fg, got, ref, idx
+
+    # 4b. the main path's case: one CC round (192 passes, 26-conn) on the
+    #     bench phantom's dilated skeleton (tools/bench_propagate.py); exact.
+    #     Least time: the mask read and the labels written once, and 8 B per
+    #     foreground voxel and pass
+    lab, fg = sparse_case("cuda")
+
+    def plain_round():
+        out = lab
+        for _ in range(SPARSE_PASSES):
+            out = propagate_ref(out, fg)
+        return out
+
+    got = propagate(lab, fg, passes=SPARSE_PASSES)
+    ref = plain_round()
+    torch.cuda.synchronize()
+    err_abs = float((got != ref).sum())
+    record("propagate", "skoots_tpu_torch/csrc/propagate.cu",
+           "skoots_tpu/kernels/propagate.py:93", err_abs, err_abs, 0.0,
+           f"voxels differing at {VOLUME} {SPARSE_PASSES} passes, {int(fg.sum())} fg "
+           f"voxels, {active_share(fg, default_tile()):.4f} of tiles active, "
+           f"{len(launch_plan(SPARSE_PASSES))} launches",
+           _time_ms(lambda: propagate(lab, fg, passes=SPARSE_PASSES)), _time_ms(plain_round),
+           (sparse_bound_ms(fg, SPARSE_PASSES), "bytes"))
+    del lab, fg, got, ref
     torch.cuda.empty_cache()
 
     # 5. 2x trilinear upsample at the decoder shapes of the bench tile, the
@@ -626,8 +661,8 @@ def run_slice(results: list):
     from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
     from skoots_tpu_torch.kernels.dwconv import dwconv3d
     from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels import propagate as prop_mod
     from skoots_tpu_torch.kernels.mlp import mlp_block_tail
-    from skoots_tpu_torch.kernels.propagate import propagate
     from skoots_tpu_torch.kernels.upsample import upsample2x
     from skoots_tpu_torch.models import model_from_checkpoint
     from skoots_tpu_torch.utils.synthetic import render_tubes, tube_segments
@@ -655,14 +690,19 @@ def run_slice(results: list):
         device=dev,
     )
     kernels = {"dwconv3d": dwconv3d, "mlp_block_tail": mlp_block_tail,
-               "ln_head": ln_head, "upsample2x": upsample2x, "propagate": propagate}
+               "ln_head": ln_head, "upsample2x": upsample2x,
+               "propagate": prop_mod.propagate}
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    t0 = time.time()
-    inst = run(volume, mean, std)
-    torch.cuda.synchronize()
-    e2e = time.time() - t0
+    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
+    try:
+        t0 = time.time()
+        inst = run(volume, mean, std)
+        torch.cuda.synchronize()
+        e2e = time.time() - t0
+    finally:
+        prop_mod.propagate_ref = saved
     counts = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
 
@@ -682,6 +722,10 @@ def run_slice(results: list):
     n_tiles = int(np.prod([-(-v // t) for v, t in zip(shape, TILE)]))
     _need(counts["upsample2x"] == 2 * n_tiles,
           f"upsample2x: {counts['upsample2x']} launches, expected 2 x {n_tiles} tiles")
+    per_round = len(prop_mod.launch_plan(192))
+    _need(counts["propagate"] == run.last_cc_rounds * per_round,
+          f"propagate: {counts['propagate']} launches, expected {run.last_cc_rounds} CC "
+          f"rounds x {per_round}")
     _need(0.8 * n_expected <= n_instances <= n_expected + 4,
           f"n_instances {n_instances} outside [0.8*{n_expected}, {n_expected}+4]")
     return ckpt, model, volume

@@ -42,8 +42,16 @@ _SIGNATURES = {
                         _F, _P),
     # dtype, x, ls, lb, w, b, out, V, C, N, eps, stream
     "skoots_ln_head": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
-    # labels_in, fg, labels_out, X, Y, Z, connectivity, stream
-    "skoots_propagate": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # labels_in, fg, labels_out, tiles, count, X, Y, Z, passes, connectivity,
+    # stream
+    "skoots_propagate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # fg, tiles, count, X, Y, Z, stream: the call's list of tiles with
+    # foreground
+    "skoots_propagate_tiles": (_P, _P, _P, _I, _I, _I, _P),
+    # -> the most passes one launch runs; X, Y, Z -> tiles of the volume
+    # (counts, not errors)
+    "skoots_propagate_qmax": (),
+    "skoots_propagate_tile_count": (_I, _I, _I),
     # B, X, Y, Z -> rows of the partial-sum buffer (a count, not an error)
     "skoots_dwconv3d_wgrad_tiles": (_I, _I, _I, _I),
     # dtype, x, g, partial, out, B, X, Y, Z, C, k, x_vstride, x_cstride, stream

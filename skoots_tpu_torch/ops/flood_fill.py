@@ -2,9 +2,10 @@
 
 Port of ``skoots_tpu/ops/flood_fill.py``. Every foreground voxel starts
 with label = raveled index + 1 (int32); a round runs ``propagates_per_round``
-masked max-propagation passes -- on a CUDA tensor each pass is one launch of
-the propagate kernel (``kernels/propagate.py``), on a CPU tensor its plain
-version -- then ``jumps_per_round`` pointer jumps ``L <- L[L - 1]`` (a plain
+masked max-propagation passes -- on a CUDA tensor the propagate kernel
+(``kernels/propagate.py``) runs up to ``QMAX`` of them a launch
+(``launch_plan``), on a CPU tensor its plain version one at a time -- then
+``jumps_per_round`` pointer jumps ``L <- L[L - 1]`` (a plain
 torch gather: union-find path halving, since labels are voxel addresses).
 At the fixpoint each component carries the raveled index + 1 of its
 maximum voxel.

@@ -1,7 +1,8 @@
-"""Microbenchmarks of the card (``python -m skoots_tpu_torch.tools.<name>``):
-``bench_fma_rate`` (FP32 / bf16 FMA rate) and ``bench_loadfma``
-(shared-memory load + FMA rate in the depthwise conv's access pattern).
-Both need a CUDA card."""
+"""Measurements on the card (``python -m skoots_tpu_torch.tools.<name>``):
+``bench_fma_rate`` (FP32 / bf16 FMA rate), ``bench_loadfma``
+(shared-memory load + FMA rate in the depthwise conv's access pattern) and
+``bench_propagate`` (the propagate kernel's tile candidates). All need a
+CUDA card."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The host-streaming slice's CUDA kernels on the card: the stepped CC's
-one propagate launch per pass (the plain propagation never runs on a CUDA
+"""The host-streaming slice's CUDA kernels on the card: the propagate
+kernel bit for bit against its plain passes, and the stepped CC's launches
+following ``launch_plan`` (the plain propagation never runs on a CUDA
 tensor), the upsample kernel bit for bit against its plain version with
 its autograd gradient, the two microbenchmarks against theirs, and the
 depthwise conv and the block tail (bf16 on the tensor cores, f32 on the
@@ -16,6 +17,7 @@ Every test needs a GPU and skips elsewhere.
 import numpy as np
 import pytest
 import torch
+from propagate_cases import PASSES, corner_tube_case, plain
 
 from skoots_tpu_torch.kernels import propagate as prop_mod
 from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
@@ -29,6 +31,7 @@ from skoots_tpu_torch.kernels.microbench import (
 from skoots_tpu_torch.kernels.mlp import mlp_block_tail, mlp_block_tail_ref
 from skoots_tpu_torch.kernels.upsample import upsample2x, upsample2x_ref
 from skoots_tpu_torch.ops.flood_fill import label_components, make_label_components_stepped
+from skoots_tpu_torch.tools.bench_propagate import default_tile
 
 
 @pytest.fixture
@@ -43,9 +46,38 @@ def _no_plain_propagation(*args, **kwargs):
 
 
 @pytest.mark.cuda
-def test_cuda_cc_launches_one_kernel_per_pass(cuda_device, monkeypatch):
-    """6 and 3 propagation passes per round (not multiples of 4): one
-    launch per pass, the labels those of the plain passes on the CPU."""
+def test_cuda_propagate_matches_plain_passes(cuda_device):
+    """The kernel against ``propagate_ref`` applied ``passes`` times, bit
+    for bit: both connectivities, passes below, at and past QMAX and not a
+    multiple of it, the CPU tests' ragged volumes (empty tiles, labels at
+    the background, a tube through the tiles' corners, axis lines), and a
+    sparse volume of more tiles than the persistent grid's blocks with a
+    bool mask; ``len(launch_plan(passes))`` launches a call."""
+    tile = default_tile()
+    cases = [corner_tube_case(shape, tile, sum(shape), background)
+             for shape, background in (((37, 21, 53), False), ((19, 30, 70), True),
+                                       ((40, 21, 53), True), ((1, 1, 1), False))]
+    rng = np.random.default_rng(5)
+    fg = rng.random((150, 90, 101)) < 0.05
+    lab = np.where(fg, rng.integers(1, 2**31 - 1, fg.shape), rng.integers(0, 9, fg.shape))
+    cases.append((torch.from_numpy(lab.astype(np.int32)), torch.from_numpy(fg)))
+    prop_mod.propagate.launches = 0
+    launches = 0
+    for lab, fg in cases:
+        for conn in (26, 6):
+            for passes in PASSES:
+                got = prop_mod.propagate(lab.to(cuda_device), fg.to(cuda_device), passes, conn)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), plain(lab, fg, passes, conn)), (lab.shape, passes)
+                launches += len(prop_mod.launch_plan(passes))
+    assert prop_mod.propagate.launches == launches
+
+
+@pytest.mark.cuda
+def test_cuda_cc_launches_follow_the_launch_plan(cuda_device, monkeypatch):
+    """6 and 3 propagation passes per round (6 not a multiple of QMAX):
+    ``len(launch_plan(passes))`` launches a round, the labels those of the
+    plain passes on the CPU."""
     monkeypatch.setattr(prop_mod, "propagate_ref", _no_plain_propagation)
     rng = np.random.default_rng(0)
     mask = (rng.random((24, 20, 16)) < 0.1).astype(np.uint8)
@@ -58,14 +90,15 @@ def test_cuda_cc_launches_one_kernel_per_pass(cuda_device, monkeypatch):
     got = want(torch.from_numpy(mask).to(cuda_device), max_rounds=32)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
-    assert prop_mod.propagate.launches == 6 * want.last_rounds
+    assert prop_mod.propagate.launches == want.last_rounds * len(prop_mod.launch_plan(6))
     prop_mod.propagate.launches = 0
     lab, converged = label_components(torch.from_numpy(mask).to(cuda_device),
                                       propagates_per_round=3, jumps_per_round=2,
                                       return_converged=True)
     torch.cuda.synchronize()
-    assert converged and prop_mod.propagate.launches % 3 == 0
-    assert prop_mod.propagate.launches > 0
+    assert converged and prop_mod.propagate.launches > 0
+    assert prop_mod.propagate.launches == (label_components.last_rounds
+                                           * len(prop_mod.launch_plan(3)))
 
 
 @pytest.mark.cuda
