@@ -8,17 +8,19 @@ them. In order:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and counts the tensor-core
-   instructions (HMMA / HGMMA) of the bf16 block tail, depthwise conv and
-   stem in the library's SASS (``cuobjdump -sass``; none fails);
+   instructions (HMMA / HGMMA) of every instantiation of the bf16 block
+   tail, depthwise conv, stem and LN head in the library's SASS
+   (``cuobjdump -sass``; none fails);
 3. compares every kernel with its plain PyTorch version on the card, at the
    shapes the main paths give it, on seeded random inputs (propagate also
    on the main path's sparse mask: one 192-pass CC round on the 512^3
    phantom's dilated skeleton), and times the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call, with CUDA events (median of several runs); the
-   depthwise conv and the block tail also at the host engine's and the
-   training path's shapes, ragged shapes, k = 3 and f32, the block tail
-   beside its plain cuBLAS composition; checks the depthwise conv's bf16
+   depthwise conv, the block tail and the LN head also at the host
+   engine's and the training path's shapes, ragged shapes, k = 3 and f32,
+   the block tail and the LN head beside their plain cuBLAS compositions;
+   checks the depthwise conv's bf16
    input gradient against its plain composition, and that the block
    tail's and LN head's autograd backward is exactly the autograd of their
    plain compositions;
@@ -106,6 +108,15 @@ TAIL_CASES = (
     (96 * 96 * 32, 32, "bf16"), (48 * 48 * 16, 64, "bf16"), (24 * 24 * 8, 128, "bf16"),
     (100003, 32, "bf16"), (12347, 64, "bf16"), (3001, 128, "bf16"), (4173, 64, "f32"),
 )
+# the LN head: (V, C, N, dtype) at the three paths' shapes (the bench tile,
+# the host engine's tile, the training crop), then V that no 32-row warp
+# tile divides, N = 8, C = 64, C = N = 128 (W in shared memory) and one f32
+# shape (the FP32 kernel)
+LN_HEAD_CASES = (
+    (256 * 256 * 96, 32, 32, "bf16"), (256 * 256 * 20, 32, 32, "bf16"),
+    (96 * 96 * 32, 32, 32, "bf16"), (100003, 32, 32, "bf16"), (100003, 32, 8, "bf16"),
+    (12347, 64, 32, "bf16"), (3001, 128, 128, "bf16"), (4173, 32, 32, "f32"),
+)
 # the block tail's work on the FP32 pipe, in instructions (issue slots of
 # one lane): per hidden value the bias add, three roundings, an erf (about
 # 9) and the GELU's 3 -- 16; per channel of the LayerNorm 8 (sum, centre,
@@ -120,7 +131,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
 # the hand-written kernels that must run on the tensor cores (bf16)
-TENSOR_CORE_KERNELS = ("tail_tc_kernel", "dwconv3d_tc_kernel", "stem_gemm_kernel")
+TENSOR_CORE_KERNELS = ("tail_tc_kernel", "dwconv3d_tc_kernel", "stem_gemm_kernel",
+                       "ln_head_tc_kernel")
 
 
 def _need(cond: bool, what: str) -> None:
@@ -196,8 +208,9 @@ def tensor_core_sass(lib_path) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(%s)ILi(\d+)E" % "|".join(TENSOR_CORE_KERNELS), line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            m = re.search(r"(%s)I((?:Li\d+E)+)E" % "|".join(TENSOR_CORE_KERNELS), line)
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            name = f"{m.group(1)}<{args}>" if m else None
             if name:
                 counts[name] = 0
         elif name and ("HMMA" in line or "HGMMA" in line):
@@ -248,7 +261,7 @@ def check_kernels() -> list:
     import torch.nn.functional as F
 
     from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
-    from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_ref
+    from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_ref, xla_ln_head
     from skoots_tpu_torch.kernels.mlp import (
         mlp_block_tail,
         mlp_block_tail_ref,
@@ -266,7 +279,6 @@ def check_kernels() -> list:
 
     rng = np.random.default_rng(SEED)
     bf = torch.bfloat16
-    tx, ty, tz = TILE
     results = []
 
     def record(*args, **kwargs):
@@ -344,26 +356,40 @@ def check_kernels() -> list:
                bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
         del args, x, s, got, ref, diff
 
-    # 3. fused final LN + 32 -> 32 head over one full-resolution tile;
-    #    bound 1 bf16 ulp
-    v = tx * ty * tz
-    x = _randn(rng, (v, 32), dtype=bf)
-    ls = _randn(rng, (32,), 0.1) + 1.0
-    lb = _randn(rng, (32,), 0.1)
-    w = _randn(rng, (32, 32), 1 / np.sqrt(32), dtype=bf)
-    b = _randn(rng, (32,), 0.1)
-    got = ln_head(x, ls, lb, w, b)
-    ref = ln_head_ref(x, ls, lb, w, b)
-    torch.cuda.synchronize()
-    err_abs = float((got.float() - ref.float()).abs().max())
-    record("ln_head", "skoots_tpu_torch/csrc/lnhead.cu",
-           "skoots_tpu/kernels/lnhead.py:53",
-           bf16_ulps(got, ref), err_abs, 1.0,
-           f"bf16 ulp at V={v} C=32->32",
-           _time_ms(lambda: ln_head(x, ls, lb, w, b)),
-           _time_ms(lambda: ln_head_ref(x, ls, lb, w, b)),
-           bound(nbytes(x, ls, lb, w, b, got), tensor_flops=2.0 * v * 32 * 32))
-    del x, got, ref
+    # 3. fused final LN + 1x1 head (LN_HEAD_CASES): equal to the plain
+    #    version (bf16: the tensor cores' sums whose rounding their order could
+    #    change are recomputed in the plain order; f32: the plain order). Least
+    #    work: the bytes, the products on the tensor cores (bf16) or the FP32
+    #    pipe (f32), and the LayerNorm on the FP32 pipe (TAIL_FP32_PER_LN).
+    #    The plain composition xla_ln_head (a cuBLAS GEMM and elementwise
+    #    kernels) is timed as a yardstick: no single library call computes
+    #    the function, so the JSON line's library_ms stays null
+    for v, c, n, dtn in LN_HEAD_CASES:
+        dt = bf if dtn == "bf16" else torch.float32
+        x = _randn(rng, (v, c), dtype=dt)
+        ls = _randn(rng, (c,), 0.1) + 1.0
+        lb = _randn(rng, (c,), 0.1)
+        w = _randn(rng, (c, n), 1 / np.sqrt(c), dtype=dt)
+        b = _randn(rng, (n,), 0.1)
+        args = (x, ls, lb, w, b)
+        got = ln_head(*args)
+        ref = ln_head_ref(*args)
+        torch.cuda.synchronize()
+        differing = int((got != ref).sum())
+        err_abs = float((got.float() - ref.float()).abs().max())
+        fp32 = 2.0 * v * c * TAIL_FP32_PER_LN
+        if dt == bf:
+            ops = {"tensor_flops": 2.0 * v * c * n, "fp32_flops": fp32}
+        else:
+            ops = {"fp32_flops": 2.0 * v * c * n + fp32}
+        comp_ms = _time_ms(lambda: xla_ln_head(*args))
+        record("ln_head", "skoots_tpu_torch/csrc/lnhead.cu",
+               "skoots_tpu/kernels/lnhead.py:53", float(differing), err_abs, 0.0,
+               f"values differing ({bf16_ulps(got, ref):.3g} bf16 ulp) at V={v} "
+               f"C={c}->{n} {dtn}",
+               _time_ms(lambda: ln_head(*args)), _time_ms(lambda: ln_head_ref(*args)),
+               bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
+        del args, x, got, ref
 
     # 4. label propagation, Q = 4 passes, 26-conn, over the whole volume;
     #    exact. Foreground: 30% random voxels, which percolate, so labels

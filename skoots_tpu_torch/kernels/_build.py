@@ -59,8 +59,8 @@ _SIGNATURES = {
                               _L, _P),
     # mask, points, ids, P, X, Y, Z, wx, wy, wz, baked, dist, stream
     "skoots_bake": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P),
-    # dtype, x, out, B, X, Y, Z, C, stream
-    "skoots_upsample2x": (_I, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dtype, x, out, B, X, Y, Z, C, planes a thread marches over, stream
+    "skoots_upsample2x": (_I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # dtype, a, b, out, n, iters, chains, stream
     "skoots_fma_chain": (_I, _P, _P, _P, _L, _I, _I, _P),
     # buf, w, out, dynamic, chains, reps, stream

@@ -2,7 +2,8 @@
 
 Replaces ``skoots_tpu/kernels/lnhead.py::_ln_head_call`` (body
 ``_kernel``). The Hopper kernel is ``csrc/lnhead.cu``: a memory-bound single
-pass (read C, write N values per voxel; see the source header).
+pass (read C, write N values per voxel), at bf16 with the products on the
+tensor cores, at f32 on the FP32 pipe (see the source header).
 
 Numerics of both versions, as at ``lnhead.py:39-49``: LN statistics in f32
 (eps 1e-6), the affine result rounded to the model dtype ``dt``, the matmul
@@ -13,8 +14,9 @@ rounded once more.
 kernel (the plain version on the CPU), the backward is the autograd of
 :func:`xla_ln_head`, the plain composition the JAX ``custom_vjp``
 differentiates (``lnhead.py:79-114``) -- never of :func:`ln_head_ref`, whose
-one-product-at-a-time sum exists only to be the kernel's bit-exact
-reference.
+one-product-at-a-time sum exists only to be the kernels' bit-exact
+reference (the bf16 kernel sums on the tensor cores and recomputes in that
+order the sums whose rounding the order could change).
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ def _dot_in_order(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def ln_head_ref(x, ln_scale, ln_bias, w, b):
     """Plain PyTorch version: ``x`` ``[..., C]``, ``w`` ``[C, N]``, ``b``
-    ``[N]``; returns ``[..., N]`` in x's dtype. The dot products run in the
-    kernel's summation order, so the kernel matches it bit for bit."""
+    ``[N]``; returns ``[..., N]`` in x's dtype. The dot products add the
+    products in order, as the kernels' FP32 steps do, so the kernels match
+    it bit for bit."""
     dt = x.dtype
     h = layer_norm_rows(x, ln_scale, ln_bias, dt)
     y = _rnd(_dot_in_order(h, _rnd(w.float(), dt)), dt)
@@ -67,12 +70,15 @@ def _ln_head_fwd(x, ln_scale, ln_bias, w, b):
     c = x.shape[-1]
     n = w.shape[-1]
     dt = x.dtype
-    if c not in (32, 64, 128) or dt not in _build.DTYPE_CODES or w.ndim != 2:
+    if (c not in (32, 64, 128) or dt not in _build.DTYPE_CODES or w.ndim != 2 or n < 1
+            or (dt == torch.bfloat16 and n > 128)):
         raise ValueError(f"ln_head: unsupported x {tuple(x.shape)} {dt}, w {tuple(w.shape)}")
     _build.check_operands("ln_head", x.device, ln_scale=(ln_scale, (c,)),
                           ln_bias=(ln_bias, (c,)), w=(w, (c, n)), b=(b, (n,)))
     x2 = x.contiguous().view(-1, c)
-    ls, lb, bb = (_rnd(t.float(), dt).contiguous() for t in (ln_scale, ln_bias, b))
+    if x2.data_ptr() % 16:  # the bf16 kernel reads 16-byte rows
+        x2 = x2.clone()
+    ls, lb, bb = (t.float().contiguous() for t in (ln_scale, ln_bias, b))
     wc = w.to(dt).contiguous()
     out = torch.empty((x2.shape[0], n), dtype=dt, device=x.device)
     code = _build.library().skoots_ln_head(

@@ -4,9 +4,10 @@ and z, one rounding to the input dtype.
 
 Replaces ``skoots_tpu/kernels/upsample.py::_upsample2x_call`` (the Pallas
 kernel behind ``upsample2x_trilinear``). The Hopper kernel is
-``csrc/upsample.cu``: one thread per input element writes its 2x2x2 outputs
-from the 3x3x3 neighbourhood, with the plain version's roundings, so the
-two agree bit for bit (see the source header).
+``csrc/upsample.cu``: a z-march, a thread owning a 16-byte vector of
+channels of one (b, i, j) column over a segment of ``SEGMENT_PLANES``
+input planes, with the plain version's roundings, so the two agree bit for
+bit (see the source header).
 
 :func:`upsample2x` is a ``torch.autograd.Function`` on both devices. The op
 is linear, so its backward keeps only the dtype and is the transpose of the
@@ -19,6 +20,11 @@ from __future__ import annotations
 import torch
 
 from skoots_tpu_torch.kernels import _build
+
+# input planes a thread of the kernel marches over along z (each segment
+# re-reads the plane below it); chosen on the main path's two decoder shapes
+# by tools/bench_upsample.py (PERF.md)
+SEGMENT_PLANES = 4
 
 
 def _upsample2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -82,7 +88,7 @@ def _upsample2x_fwd(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, 2 * xs, 2 * ys, 2 * zs, c), dtype=x.dtype, device=x.device)
     code = _build.library().skoots_upsample2x(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), b, xs, ys, zs,
-        c, _build.stream_ptr(x))
+        c, SEGMENT_PLANES, _build.stream_ptr(x))
     _build.check(code, "upsample2x")
     upsample2x.launches += 1
     return out

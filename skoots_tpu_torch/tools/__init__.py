@@ -1,7 +1,8 @@
 """Measurements on the card (``python -m skoots_tpu_torch.tools.<name>``):
 ``bench_fma_rate`` (FP32 / bf16 FMA rate), ``bench_loadfma``
-(shared-memory load + FMA rate in the depthwise conv's access pattern) and
-``bench_propagate`` (the propagate kernel's tile candidates). All need a
+(shared-memory load + FMA rate in the depthwise conv's access pattern),
+``bench_propagate`` (the propagate kernel's tile candidates) and
+``bench_upsample`` (the upsample kernel's segment candidates). All need a
 CUDA card."""
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ kernel bit for bit against its plain passes, and the stepped CC's launches
 following ``launch_plan`` (the plain propagation never runs on a CUDA
 tensor), the upsample kernel bit for bit against its plain version with
 its autograd gradient, the two microbenchmarks against theirs, and the
-depthwise conv and the block tail (bf16 on the tensor cores, f32 on the
-FP32 pipe) at ragged shapes against theirs.
+depthwise conv, the block tail and the LN head (bf16 on the tensor cores,
+f32 on the FP32 pipe) at ragged shapes against theirs.
 
 Imports no JAX (the card's machine has none), so it runs there without the
 repository's conftest:
@@ -21,6 +21,7 @@ from propagate_cases import PASSES, corner_tube_case, plain
 
 from skoots_tpu_torch.kernels import propagate as prop_mod
 from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
+from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_ref
 from skoots_tpu_torch.kernels.microbench import (
     SHAPE,
     fma_chain,
@@ -210,3 +211,27 @@ def test_cuda_block_tail_matches_plain_version_at_ragged_shapes(cuda_device):
             torch.testing.assert_close(got.float(), ref.float(), atol=4e-3, rtol=1e-3)
     torch.cuda.synchronize()
     assert mlp_block_tail.launches == 2 * len(cases)
+
+
+@pytest.mark.cuda
+def test_cuda_ln_head_matches_plain_version_at_ragged_shapes(cuda_device):
+    """Equal to the plain version at bf16 (tensor cores; the sums whose
+    rounding their order could change recomputed in the plain order) and at
+    f32 (FP32 pipe, the plain order): at V that no 32-row warp tile divides
+    (one row; a large ragged V), N = 8 and 5 (a partial n8 tile), C = 64
+    and C = 128 (W read from shared memory), N = 128."""
+    rng = np.random.default_rng(6)
+    ln_head.launches = 0
+    cases = [(100003, 32, 32), (1, 32, 32), (12347, 32, 8), (4173, 64, 32),
+             (3001, 128, 5), (130, 128, 128)]
+    for v, c, n in cases:
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+        args = [f(v, c), f(c) * 0.1 + 1.0, f(c) * 0.1, f(c, n) / c ** 0.5, f(n) * 0.1]
+        for dt in (torch.bfloat16, torch.float32):
+            a = [t.to(cuda_device) for t in args]
+            a[0], a[3] = a[0].to(dt), a[3].to(dt)
+            got, ref = ln_head(*a), ln_head_ref(*a)
+            assert got.dtype == dt and got.shape == ref.shape
+            assert torch.equal(got, ref), (v, c, n, dt, _bf16_ulps(got, ref))
+    torch.cuda.synchronize()
+    assert ln_head.launches == 2 * len(cases)
