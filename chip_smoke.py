@@ -45,16 +45,36 @@ them. In order:
    peak device memory;
 7. runs the same pipeline on a 128x128x64 block of the phantom on the card
    and on the CPU and compares the instances;
-8. one f32 train step of the full-width model on a 32x32x16 batch, on the
+8. device-thrifty path: ``infer.device_pipeline.make_thrifty_pipeline`` on
+   the same phantom as a uint8 host array, with the same knobs (the assign
+   phase runs the forward again on 256x256x64 tiles), launch counts set to
+   0 just before and read just after (each forward kernel per forward of
+   the pipeline's tile plan, propagate per CC round), the mask 16-bit and
+   numbered 1..N, the instance count, the phase split and peak device
+   memory (held against ``estimated_device_bytes`` with one forward tile's
+   peak; the CC and compaction alone against its 13 B a voxel), a warm
+   rerun and the chunked pipeline again; then ``skoots-validate``'s
+   metrics on the card (thrifty mask against the chunked one: F1@0.5 >=
+   0.95) and their IoU, Dice and clDice tables against the CPU's;
+9. the sparse-checkpoint probe (``infer.engine._probe_semantic_threshold``)
+   on the phantom at ``run_inference``'s 512^3 probe geometry, launch counts
+   set to 0 just before and read just after, and its threshold on the card
+   against the CPU's plain versions on a block three tubes cross;
+10. ``infer.engine.run_inference`` on the uint8 phantom (``.npy``) with
+   ``engine_impl="device-thrifty"``, then with ``auto`` while a ballast
+   tensor leaves free only memory halfway between the thrifty and chunked
+   estimates (``auto`` must take the thrifty pipeline and finish): launch
+   counts, the phases JSON, the instance count;
+11. one f32 train step of the full-width model on a 32x32x16 batch, on the
    card and on the CPU from the same weights: loss and every gradient;
-9. training path (``skoots-train`` at the bench checkpoint's training cfg:
+12. training path (``skoots-train`` at the bench checkpoint's training cfg:
    bf16, crop 96x96x32, batch 1, on seeded synthetic tube volumes): 8 steps
    on one augmented batch (the loss must fall; the step time split into
    augment, forward + loss, backward and optimizer, and peak memory), then
    ``train.engine.train`` for 2 epochs of 8 steps through the whole
    augmentation with the launch counts set to 0 before and read after, and
    the saved checkpoint loaded back and run;
-10. prints one JSON line of per-kernel results (each with its least time on
+13. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -66,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -82,38 +103,59 @@ VOLUME = (512, 512, 512)
 TRAIN_CROP = (96, 96, 32)
 # host-streaming path: a 256^3 volume (auto picks the host engine up to 256^3)
 HOST_VOLUME = (256, 256, 256)
+# the thrifty pipeline's assign tile, where it runs the forward again
+ASSIGN_TILE = (256, 256, 64)
+# the sparse-checkpoint probe's tile geometry: run_inference's for a 512^3
+# volume at the CLI defaults (crop 300x300x20, overlap 50x50x5); the card
+# is held against the CPU's plain versions on the 128x128x64 block of the
+# phantom that three tubes cross, as two 128x128x32 tiles (the full-width
+# model takes 10-15 us a voxel on that machine's CPU)
+PROBE_TILE, PROBE_OVERLAP = (300, 300, 20), (50, 50, 5)
+PROBE_CPU_TILE = (128, 128, 32)
+PROBE_CPU_BLOCK = (slice(192, 320), slice(192, 320), slice(192, 256))
 # the upsample's inputs: the two decoder stages of the bench tile, of the
-# host engine's 256x256x20 tile, and of the training crop at batch 2
+# host engine's 256x256x20 tile, of the training crop at batch 2, of the
+# thrifty assign tile and of the probe tile
 UPSAMPLE_SHAPES = ((1, 64, 64, 24, 128), (1, 128, 128, 48, 64), (1, 64, 64, 5, 128),
-                   (1, 128, 128, 10, 64), (2, 24, 24, 8, 128), (2, 48, 48, 16, 64))
-# the depthwise conv at every shape the three paths give it: ([B, X, Y, Z],
+                   (1, 128, 128, 10, 64), (2, 24, 24, 8, 128), (2, 48, 48, 16, 64),
+                   (1, 64, 64, 16, 128), (1, 128, 128, 32, 64), (1, 75, 75, 5, 128),
+                   (1, 150, 150, 10, 64))
+# the depthwise conv at every shape the paths give it: ([B, X, Y, Z],
 # input channels, output channels, k, dtype): the bench tile's four levels,
-# the host engine's 256x256x20 tile, the training crop's, then k = 3 at
-# batch 2 on ragged X, Y, Z, and one f32 shape (the FP32 kernel)
+# the thrifty assign tile's and the probe tile's, the host engine's
+# 256x256x20 tile, the training crop's, then k = 3 at batch 2 on ragged X,
+# Y, Z, and one f32 shape (the FP32 kernel)
 DWCONV_CASES = (
     ((1, 256, 256, 96), 1, 32, 7, "bf16"), ((1, 256, 256, 96), 32, 32, 7, "bf16"),
     ((1, 128, 128, 48), 64, 64, 7, "bf16"), ((1, 64, 64, 24), 128, 128, 7, "bf16"),
+    ((1, 256, 256, 64), 1, 32, 7, "bf16"), ((1, 256, 256, 64), 32, 32, 7, "bf16"),
+    ((1, 128, 128, 32), 64, 64, 7, "bf16"), ((1, 64, 64, 16), 128, 128, 7, "bf16"),
+    ((1, 300, 300, 20), 1, 32, 7, "bf16"), ((1, 300, 300, 20), 32, 32, 7, "bf16"),
+    ((1, 150, 150, 10), 64, 64, 7, "bf16"), ((1, 75, 75, 5), 128, 128, 7, "bf16"),
     ((1, 256, 256, 20), 1, 32, 7, "bf16"), ((1, 256, 256, 20), 32, 32, 7, "bf16"),
     ((1, 128, 128, 10), 64, 64, 7, "bf16"), ((1, 64, 64, 5), 128, 128, 7, "bf16"),
     ((1, 96, 96, 32), 1, 32, 7, "bf16"), ((1, 96, 96, 32), 32, 32, 7, "bf16"),
     ((1, 48, 48, 16), 64, 64, 7, "bf16"), ((1, 24, 24, 8), 128, 128, 7, "bf16"),
     ((2, 40, 36, 20), 32, 32, 3, "bf16"), ((1, 48, 48, 16), 64, 64, 7, "f32"),
 )
-# the block tail: (V, C, dtype) for the same three paths' levels, then V
-# that no row tile divides (128 rows a block at C = 32 and 64, 64 at 128)
-# and one f32 shape (the FP32 kernel)
+# the block tail: (V, C, dtype) for the same paths' levels, then V that no
+# row tile divides (128 rows a block at C = 32 and 64, 64 at 128) and one
+# f32 shape (the FP32 kernel)
 TAIL_CASES = (
     (256 * 256 * 96, 32, "bf16"), (128 * 128 * 48, 64, "bf16"), (64 * 64 * 24, 128, "bf16"),
+    (256 * 256 * 64, 32, "bf16"), (128 * 128 * 32, 64, "bf16"), (64 * 64 * 16, 128, "bf16"),
+    (300 * 300 * 20, 32, "bf16"), (150 * 150 * 10, 64, "bf16"), (75 * 75 * 5, 128, "bf16"),
     (256 * 256 * 20, 32, "bf16"), (128 * 128 * 10, 64, "bf16"), (64 * 64 * 5, 128, "bf16"),
     (96 * 96 * 32, 32, "bf16"), (48 * 48 * 16, 64, "bf16"), (24 * 24 * 8, 128, "bf16"),
     (100003, 32, "bf16"), (12347, 64, "bf16"), (3001, 128, "bf16"), (4173, 64, "f32"),
 )
-# the LN head: (V, C, N, dtype) at the three paths' shapes (the bench tile,
-# the host engine's tile, the training crop), then V that no 32-row warp
-# tile divides, N = 8, C = 64, C = N = 128 (W in shared memory) and one f32
-# shape (the FP32 kernel)
+# the LN head: (V, C, N, dtype) at the paths' shapes (the bench tile, the
+# thrifty assign tile, the probe tile, the host engine's tile, the training
+# crop), then V that no 32-row warp tile divides, N = 8, C = 64, C = N =
+# 128 (W in shared memory) and one f32 shape (the FP32 kernel)
 LN_HEAD_CASES = (
-    (256 * 256 * 96, 32, 32, "bf16"), (256 * 256 * 20, 32, 32, "bf16"),
+    (256 * 256 * 96, 32, 32, "bf16"), (256 * 256 * 64, 32, 32, "bf16"),
+    (300 * 300 * 20, 32, 32, "bf16"), (256 * 256 * 20, 32, 32, "bf16"),
     (96 * 96 * 32, 32, 32, "bf16"), (100003, 32, 32, "bf16"), (100003, 32, 8, "bf16"),
     (12347, 64, 32, "bf16"), (3001, 128, 128, "bf16"), (4173, 32, 32, "f32"),
 )
@@ -124,6 +166,9 @@ LN_HEAD_CASES = (
 # scale and residual with their four roundings)
 TAIL_FP32_PER_HIDDEN, TAIL_FP32_PER_LN, TAIL_FP32_PER_OUT = 16, 8, 7
 REPEATS = 5
+# launches of each forward kernel in one forward of the bench model
+FORWARD_KERNELS_PER_TILE = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1,
+                            "upsample2x": 2}
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
 # FP32 FLOP/s outside the tensor cores (an FMA counts 2, so other
 # instructions issue at half of it), dense bf16 tensor-core FLOP/s
@@ -552,6 +597,19 @@ def _no_plain_propagation(*args, **kwargs):
     raise RuntimeError("the plain propagation ran on the card")
 
 
+def _launch_counters():
+    """The wrappers of the forward kernels and propagate, by name."""
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+    from skoots_tpu_torch.kernels.upsample import upsample2x
+
+    return {"dwconv3d": dwconv3d, "mlp_block_tail": mlp_block_tail,
+            "ln_head": ln_head, "upsample2x": upsample2x,
+            "propagate": prop_mod.propagate}
+
+
 def run_host_engine(results: list) -> None:
     """The host-streaming engine through ``run_inference`` at its defaults
     on a seeded 256^3 tube phantom (uint8 ``.npy``) with the bench
@@ -563,10 +621,6 @@ def run_host_engine(results: list) -> None:
 
     from skoots_tpu_torch.infer import engine
     from skoots_tpu_torch.kernels import propagate as prop_mod
-    from skoots_tpu_torch.kernels.dwconv import dwconv3d
-    from skoots_tpu_torch.kernels.lnhead import ln_head
-    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
-    from skoots_tpu_torch.kernels.upsample import upsample2x
     from skoots_tpu_torch.utils.synthetic import render_tubes, tube_segments
 
     ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
@@ -582,10 +636,8 @@ def run_host_engine(results: list) -> None:
     np.save(path, vol)
     print(f"host engine: phantom {shape} uint8, {n_expected} tubes placed", flush=True)
 
-    kernels = {"dwconv3d": dwconv3d, "mlp_block_tail": mlp_block_tail,
-               "ln_head": ln_head, "upsample2x": upsample2x,
-               "propagate": prop_mod.propagate}
-    per_forward = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1, "upsample2x": 2}
+    kernels = _launch_counters()
+    per_forward = FORWARD_KERNELS_PER_TILE
 
     def run(tag, **kw):
         for fn in kernels.values():
@@ -680,16 +732,14 @@ def run_host_engine(results: list) -> None:
 
 def run_slice(results: list):
     """The main path on the bench checkpoint and phantom; returns
-    ``(checkpoint, model, phantom)`` for :func:`check_against_cpu`."""
+    ``(checkpoint, model, phantom, instance mask on the host, the run's
+    peak reserved device bytes, the pipeline)`` for
+    :func:`check_against_cpu` and :func:`run_thrifty`."""
     import torch
 
     from skoots_tpu_torch.checkpoint import load_checkpoint
     from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
-    from skoots_tpu_torch.kernels.dwconv import dwconv3d
-    from skoots_tpu_torch.kernels.lnhead import ln_head
     from skoots_tpu_torch.kernels import propagate as prop_mod
-    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
-    from skoots_tpu_torch.kernels.upsample import upsample2x
     from skoots_tpu_torch.models import model_from_checkpoint
     from skoots_tpu_torch.utils.synthetic import render_tubes, tube_segments
 
@@ -715,9 +765,10 @@ def run_slice(results: list):
         cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0,
         device=dev,
     )
-    kernels = {"dwconv3d": dwconv3d, "mlp_block_tail": mlp_block_tail,
-               "ln_head": ln_head, "upsample2x": upsample2x,
-               "propagate": prop_mod.propagate}
+    kernels = _launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -730,7 +781,10 @@ def run_slice(results: list):
     finally:
         prop_mod.propagate_ref = saved
     counts = {name: fn.launches for name, fn in kernels.items()}
-    peak = torch.cuda.max_memory_allocated()
+    # the run's own peaks, over the phantom and the model it was given:
+    # allocated, and reserved (what the card must have free)
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved() - base_reserved
 
     _need(tuple(inst.shape) == shape and inst.dtype == torch.int32,
           f"output {tuple(inst.shape)} {inst.dtype}")
@@ -740,7 +794,8 @@ def run_slice(results: list):
     print(f"cc_rounds {run.last_cc_rounds} cc_converged {run.last_cc_converged}",
           flush=True)
     print(f"inference launches {json.dumps(counts)}", flush=True)
-    print(f"peak_device_memory_bytes {peak}", flush=True)
+    print(f"peak_device_memory_bytes {peak}, reserved {reserved} (over the {base} B "
+          "allocated before the run: the f32 phantom and the model)", flush=True)
     for r in results:
         r["launches"] += counts.get(r["name"], 0)
     for name, n in counts.items():
@@ -754,7 +809,7 @@ def run_slice(results: list):
           f"rounds x {per_round}")
     _need(0.8 * n_expected <= n_instances <= n_expected + 4,
           f"n_instances {n_instances} outside [0.8*{n_expected}, {n_expected}+4]")
-    return ckpt, model, volume
+    return ckpt, model, volume, inst.cpu(), reserved, run
 
 
 def check_against_cpu(ckpt, model, volume) -> None:
@@ -796,6 +851,338 @@ def check_against_cpu(ckpt, model, volume) -> None:
           f"min IoU {min(ious, default=0.0):.4f}", flush=True)
     _need(len(ids) >= 1 and n_card == len(ids) and min(ious) >= 0.95,
           "the card's instances differ from the plain versions' on the CPU")
+
+
+def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
+                chunked_run) -> None:
+    """The device-thrifty pipeline on the bench phantom as ``skoots
+    --image`` gives it one, a uint8 host array (the phantom rounded), with
+    the main path's knobs, launch counts set to 0 just before and read just
+    after (every forward kernel per forward of its tile plan, propagate per
+    CC round, the plain propagation barred); its peak device memory over
+    what was allocated before, held against ``estimated_device_bytes``
+    with one forward tile's peak measured as ``auto`` measures it; a
+    second, warm run (the same mask), then the chunked pipeline again, for
+    times taken in turns; then ``skoots-validate``'s metrics on the card
+    with the thrifty mask as the prediction and the chunked pipeline's as
+    the ground truth, F1@0.5 >= 0.95, and the card's IoU, Dice and clDice
+    tables held against the same functions on the CPU. Returns the uint8
+    phantom and the tile's peak bytes for :func:`run_thrifty_engine`."""
+    import torch
+
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.infer.device_pipeline import (
+        estimated_device_bytes,
+        make_thrifty_pipeline,
+    )
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.ops.flood_fill import (
+        _compact_labels,
+        make_label_components_stepped,
+        widen_u16,
+    )
+    from skoots_tpu_torch.utils.synthetic import tube_segments
+    from skoots_tpu_torch.validate import metrics
+    from skoots_tpu_torch.validate.cli import run_validation
+
+    dev = torch.device("cuda")
+    mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
+    n_expected = tube_segments(VOLUME, 48, radius=5.0, seed=7)[2]
+    vol_u8 = volume.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    vox = int(np.prod(VOLUME))
+    run = make_thrifty_pipeline(
+        model, VOLUME, crop=TILE, overlap=(0, 0, 0), assign_crop=ASSIGN_TILE,
+        vector_scale=tuple(ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"]),
+        embed_iterations=10, embed_exit_fraction=1e-3, embed_compact_div=16,
+        cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0,
+        device=dev,
+    )
+    torch.cuda.empty_cache()
+    tile_bytes = engine._forward_tile_bytes(model, [TILE, ASSIGN_TILE], 0.8, 0.8, 1, 2,
+                                            dev)
+    kernels = _launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
+    try:
+        t0 = time.time()
+        inst = run(vol_u8, mean, std)
+        torch.cuda.synchronize()
+        e2e = time.time() - t0
+    finally:
+        prop_mod.propagate_ref = saved
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved() - base_reserved
+    labels = widen_u16(inst)
+    ids = torch.unique(labels)
+    n_instances = int((ids > 0).sum())
+    est = estimated_device_bytes(VOLUME, thrifty=True, itemsize=1, tile_bytes=tile_bytes)
+    est_chunked = estimated_device_bytes(VOLUME, tile_bytes=tile_bytes)
+    print(f"thrifty (uint8 host volume) phases: {json.dumps(run.last_phase_s)} e2e "
+          f"{e2e:.3f} s", flush=True)
+    print(f"thrifty n_instances {n_instances} n_expected {n_expected} components "
+          f"{run.last_count} mask {inst.dtype} cc_rounds {run.last_cc_rounds} "
+          f"cc_converged {run.last_cc_converged}", flush=True)
+    print(f"thrifty launches {json.dumps(counts)} tile plan {json.dumps(run.tile_plan)}",
+          flush=True)
+    print(f"thrifty peak_device_memory_bytes {peak}, reserved {reserved} (over {base} B "
+          f"allocated before); one forward tile reserves {tile_bytes} B; beyond it "
+          f"{(reserved - tile_bytes) / vox:.3f} B a voxel reserved (estimate 13), "
+          f"estimate {est} B; chunked (f32 phantom on the card) reserved {chunked_peak}, "
+          f"{(chunked_peak - tile_bytes) / vox:.3f} B a voxel beyond the tile (estimate "
+          f"24), estimate {est_chunked} B", flush=True)
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+    _need(reserved <= est, f"thrifty reserved {reserved} B over its estimate {est} B")
+    _need(chunked_peak <= est_chunked,
+          f"chunked reserved {chunked_peak} B over its estimate {est_chunked} B")
+    _need(tuple(inst.shape) == VOLUME, f"thrifty output {tuple(inst.shape)}")
+    _need(inst.dtype == (torch.uint16 if run.last_count < 2**16 else torch.int32),
+          f"thrifty mask {inst.dtype} for {run.last_count} components")
+    _need(int(ids[0]) == 0 and int(ids[-1]) <= run.last_count,
+          f"thrifty labels up to {int(ids[-1])}, not numbered 1..{run.last_count}")
+    forwards = run.tile_plan["forward"] + run.tile_plan["assign"]
+    for name, k in FORWARD_KERNELS_PER_TILE.items():
+        _need(counts[name] == k * forwards,
+              f"thrifty {name}: {counts[name]} launches, expected {k} x {forwards} "
+              "forwards")
+    per_round = len(prop_mod.launch_plan(192))
+    _need(counts["propagate"] == run.last_cc_rounds * per_round > 0,
+          f"thrifty propagate: {counts['propagate']} launches, expected "
+          f"{run.last_cc_rounds} CC rounds x {per_round}")
+    _need(0.8 * n_expected <= n_instances <= n_expected + 4,
+          f"thrifty n_instances {n_instances} outside [0.8*{n_expected}, {n_expected}+4]")
+    # phase 2 alone, where the per-voxel term peaks: the CC and the 16-bit
+    # compaction on the mask of the thrifty instances, over that mask
+    fg = (labels > 0).to(torch.uint8)
+    cc = make_label_components_stepped(VOLUME, rounds_per_dispatch=1,
+                                       propagates_per_round=192, jumps_per_round=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    compact, n_cc = _compact_labels(cc(fg, max_rounds=24), narrow16=True)
+    torch.cuda.synchronize()
+    cc_peak = torch.cuda.max_memory_reserved() - base_reserved
+    # the pipeline holds the uint8 volume and the mask beside it
+    cc_per_voxel = cc_peak / vox + 2
+    print(f"thrifty phase 2 alone (CC {cc.last_rounds} rounds + compaction to {n_cc} "
+          f"labels, {compact.dtype}): {cc_peak} B reserved over the mask, "
+          f"{cc_per_voxel:.3f} B a voxel with the volume and the mask (estimate 13)",
+          flush=True)
+    _need(cc_per_voxel <= 13, f"thrifty phase 2 takes {cc_per_voxel:.3f} B a voxel")
+    del fg, compact
+    for name, again, vol in (("thrifty", run, vol_u8), ("chunked", chunked_run, volume)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = again(vol, mean, std)
+        torch.cuda.synchronize()
+        print(f"{name} again: phases {json.dumps(again.last_phase_s)} e2e "
+              f"{time.time() - t0:.3f} s", flush=True)
+        if again is run:
+            _need(torch.equal(widen_u16(out), labels),
+                  "the thrifty pipeline's second mask differs")
+        del out
+    torch.cuda.empty_cache()
+
+    work = os.path.join(ROOT, "build", "validate_smoke")
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = run_validation(chunked, labels, os.path.join(work, "thrifty"),
+                         plots=False, device=dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    print(f"validate (thrifty vs chunked, card): F1@0.5 {res['f1@50']:.6f} mean IoU "
+          f"{res['mean_iou']:.6f} mean clDice {res['mean_cldice']:.6f} over-seg "
+          f"{res['over_segmentation_rate']:.4f} under-seg "
+          f"{res['under_segmentation_rate']:.4f} in {dt:.3f} s", flush=True)
+    _need(res["f1@50"] >= 0.95, f"thrifty vs chunked F1@0.5 {res['f1@50']} < 0.95")
+    pred = labels.cpu()
+    for fn in ("mask_iou", "mask_dice", "mask_soft_cldice"):
+        card = getattr(metrics, fn)(chunked, labels, device=dev).cpu()
+        cpu = getattr(metrics, fn)(chunked, pred, device="cpu")
+        err = float((card - cpu).abs().max()) if card.numel() else 0.0
+        tol = 1e-5 if fn == "mask_soft_cldice" else 0.0
+        print(f"validate {fn}: card vs cpu {tuple(card.shape)} max |d| {err:.3g} "
+              f"(bound {tol:g})", flush=True)
+        _need(card.shape == cpu.shape and err <= tol,
+              f"{fn}: the card's table differs from the CPU's by {err}")
+    shutil.rmtree(work, ignore_errors=True)
+    del inst, labels
+    torch.cuda.empty_cache()
+    return vol_u8, tile_bytes
+
+
+def run_thrifty_engine(results: list, vol_u8, tile_bytes: int) -> None:
+    """``run_inference`` on the uint8 phantom (an ``.npy``, as ``skoots
+    --image`` reads one) with the bench checkpoint: first with
+    ``engine_impl="device-thrifty"``, then with ``auto`` on a card whose
+    free memory a ballast tensor cuts to halfway between the thrifty and
+    the chunked estimates, where ``auto`` must take the thrifty pipeline
+    and finish. Launch counts set to 0 just before each run and read just
+    after: each forward kernel per forward (the 4 dilation-probe tiles,
+    ``auto``'s one measured tile, the pipeline's tile plan), propagate per
+    CC round; the phases JSON's engine, the instance count."""
+    import torch
+
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.infer.device_pipeline import estimated_device_bytes
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.utils.synthetic import tube_segments
+
+    ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    work = os.path.join(ROOT, "build", "thrifty_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "phantom.npy")
+    np.save(path, vol_u8)
+    n_expected = tube_segments(VOLUME, 48, radius=5.0, seed=7)[2]
+    dev = torch.device("cuda")
+    kernels = _launch_counters()
+
+    def run(tag, engine_impl, measured_tiles):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
+        try:
+            t0 = time.time()
+            mask = engine.run_inference(path, ckpt, engine_impl=engine_impl,
+                                        output_path=os.path.join(work, f"mask_{tag}.npy"))
+            torch.cuda.synchronize()
+            e2e = time.time() - t0
+        finally:
+            prop_mod.propagate_ref = saved
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        with open(os.path.join(work, "phantom_skoots_phases.json")) as f:
+            stats = json.load(f)
+        n = len(np.unique(mask)) - 1
+        print(f"run_inference [{tag}]: {n} instances of {n_expected} placed, e2e "
+              f"{e2e:.3f} s; phases {json.dumps(stats)}; launches {json.dumps(counts)}",
+              flush=True)
+        for r in results:
+            r["launches"] += counts.get(r["name"], 0)
+        _need(stats["engine"] == "device-thrifty",
+              f"[{tag}] ran the {stats['engine']} engine, not device-thrifty")
+        forwards = 4 + measured_tiles + sum(stats["tile_plan"].values())
+        for name, k in FORWARD_KERNELS_PER_TILE.items():
+            _need(counts[name] == k * forwards,
+                  f"[{tag}] {name}: {counts[name]} launches, expected {k} x {forwards}")
+        # run_inference's CC: the pipeline's default 128 passes a round
+        per_round = len(prop_mod.launch_plan(128))
+        _need(counts["propagate"] == stats["cc_rounds"] * per_round > 0,
+              f"[{tag}] propagate: {counts['propagate']} launches, expected "
+              f"{stats['cc_rounds']} CC rounds x {per_round}")
+        _need(0.8 * n_expected <= n <= n_expected + 4,
+              f"[{tag}] n_instances {n} outside [0.8*{n_expected}, {n_expected}+4]")
+        return stats
+
+    run("device-thrifty", "device-thrifty", 0)
+
+    est = {"device": estimated_device_bytes(VOLUME, tile_bytes=tile_bytes),
+           "device-thrifty": estimated_device_bytes(VOLUME, thrifty=True, itemsize=1,
+                                                    tile_bytes=tile_bytes)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    target = (est["device"] + est["device-thrifty"]) // 2
+    ballast = torch.empty(engine._device_bytes_limit(dev) - target, dtype=torch.uint8,
+                          device=dev)
+    print(f"auto: a {ballast.numel()} B ballast leaves {engine._device_bytes_limit(dev)} B "
+          f"free (estimates {json.dumps(est)})", flush=True)
+    try:
+        stats = run("auto", "auto", 1)
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    auto = stats["auto"]
+    _need(auto["estimated_bytes"]["device-thrifty"] <= auto["free_bytes"]
+          < auto["estimated_bytes"]["device"],
+          f"auto: free {auto['free_bytes']} B not between the estimates "
+          f"{json.dumps(auto['estimated_bytes'])}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def check_sparse_probe(results: list, ckpt, model, volume) -> None:
+    """``infer.engine._probe_semantic_threshold`` (the sparse checkpoint's
+    gate) with the bench model on the phantom at ``run_inference``'s probe
+    geometry for 512^3, launch counts set to 0 just before and read just
+    after (each forward kernel per probe tile); held against the same
+    function on the CPU with the plain versions and the checkpoint's dtype
+    on a block three tubes cross: the same histogram bin, or None on
+    both."""
+    import torch
+
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.infer.autoknobs import calibrate_semantic_threshold_from_histogram
+    from skoots_tpu_torch.models import model_from_checkpoint
+
+    mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
+    vol = volume.cpu().numpy()[..., None]
+    kernels = _launch_counters()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    thr = engine._probe_semantic_threshold(model, mean, std, vol, PROBE_TILE,
+                                           PROBE_OVERLAP, "cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    print(f"sparse probe (card): threshold {thr} in {dt:.3f} s, launches "
+          f"{json.dumps(counts)}", flush=True)
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+    for name, k in FORWARD_KERNELS_PER_TILE.items():
+        _need(counts[name] == 4 * k,
+              f"probe {name}: {counts[name]} launches, expected {k} x 4 tiles")
+
+    def bin_width(probs):
+        """The logit width of the calibration histogram's bins."""
+        v = probs[probs > 0.5]
+        t = np.log(np.clip(v, 1e-6, 1 - 1e-7)) - np.log(np.clip(1 - v, 1e-7, 1))
+        return (t.max() - t.min()) / 128 if v.size else 0.0
+
+    def logit(p):
+        return float(np.log(p) - np.log1p(-p))
+
+    block = np.ascontiguousarray(vol[PROBE_CPU_BLOCK])
+
+    def probe(m, device):
+        probs = engine._probe_probabilities(m, mean, std, block, PROBE_CPU_TILE,
+                                            (0, 0, 0), device)
+        return calibrate_semantic_threshold_from_histogram(probs), probs
+
+    card_thr, card_probs = probe(model, "cuda")
+    print(f"sparse probe (card, {block.shape[:3]} block): threshold {card_thr}, "
+          f"{int((card_probs > 0.5).sum())} values above 0.5, "
+          f"{int((card_probs == 1.0).sum())} equal to 1, bin width "
+          f"{bin_width(card_probs):.4f}", flush=True)
+    # the checkpoint's own dtype (bf16) must land in the card's bin; an f32
+    # copy is printed beside it but not held: bf16 probabilities above 0.5
+    # come in steps of 2^-8 and mostly saturate at 1, so its histogram's
+    # range, and with it the valley, differs
+    model_dtype = ckpt["cfg"]["MODEL"]["DTYPE"]
+    cpu_ckpt = {**ckpt, "cfg": {**ckpt["cfg"]}}
+    for dtype in ("float32", model_dtype):
+        cpu_ckpt["cfg"]["MODEL"] = {**ckpt["cfg"]["MODEL"], "DTYPE": dtype}
+        cpu_model = model_from_checkpoint(cpu_ckpt, device="cpu")
+        t0 = time.time()
+        cpu_thr, probs = probe(cpu_model, "cpu")
+        same = (card_thr is None and cpu_thr is None) or (
+            card_thr is not None and cpu_thr is not None
+            and abs(logit(card_thr) - logit(cpu_thr)) <= bin_width(probs))
+        print(f"sparse probe (cpu, {dtype} model): threshold {cpu_thr} in "
+              f"{time.time() - t0:.1f} s, bin width {bin_width(probs):.4f}, "
+              f"{int((probs == 1.0).sum())} equal to 1; same bin as the card: {same}",
+              flush=True)
+    _need(same, f"probe: the card's threshold {card_thr} and the CPU's {cpu_thr} "
+          f"({model_dtype}) are not in one histogram bin")
 
 
 def check_train_kernels(results: list) -> None:
@@ -1148,7 +1535,16 @@ def main() -> int:
     check_microbenchmarks(results)
     check_train_kernels(results)
     run_host_engine(results)
-    check_against_cpu(*run_slice(results))
+    ckpt, model, volume, chunked, chunked_peak, chunked_run = run_slice(results)
+    check_against_cpu(ckpt, model, volume)
+    torch.cuda.empty_cache()
+    vol_u8, tile_bytes = run_thrifty(results, ckpt, model, volume, chunked, chunked_peak,
+                                     chunked_run)
+    check_sparse_probe(results, ckpt, model, volume)
+    del ckpt, model, volume, chunked, chunked_run
+    torch.cuda.empty_cache()
+    run_thrifty_engine(results, vol_u8, tile_bytes)
+    del vol_u8
     torch.cuda.empty_cache()
     check_grads_against_cpu()
     run_train_slice(results)

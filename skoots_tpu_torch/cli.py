@@ -4,8 +4,8 @@ surface of ``skoots_tpu/cli.py:26-196`` on the PyTorch/CUDA port.
 Every argument of the JAX CLI is accepted, plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs every kernel's plain version on the CPU).
 The ones whose feature is not ported yet (``--skeletonize-train-data``,
-``--convert``, ``--experimental``, the ``device-thrifty`` engine,
-``--spatial-shards`` > 1) raise ``NotImplementedError``; see ROADMAP.md.
+``--experimental``, ``--spatial-shards`` > 1) raise
+``NotImplementedError``; see ROADMAP.md.
 
     python -m skoots_tpu_torch --image vol.tif --pretrained-checkpoint m.skoots
 """
@@ -148,7 +148,10 @@ def main(argv=None) -> int:
     if args.skeletonize_train_data:
         raise NotImplementedError(f"--skeletonize-train-data {_NOT_PORTED}")
     if args.convert:
-        raise NotImplementedError(f"--convert {_NOT_PORTED}")
+        from skoots_tpu_torch.utils.convert import convert
+
+        convert(args.convert)
+        return 0
     if args.experimental:
         raise NotImplementedError(f"--experimental {_NOT_PORTED}")
     if not args.image or not args.pretrained_checkpoint:

@@ -1,10 +1,13 @@
 """Data-derived knobs (numpy/scipy; copied from
-``skoots_tpu/infer/autoknobs.py:34-110,254-286``).
+``skoots_tpu/infer/autoknobs.py:34-110,178-228,254-286``).
 
 Auto mode runs a few probe tiles with NO dilation, measures the minimum
 spacing between sizeable connected components of the raw thresholded
 skeleton, and picks the largest dilation stack that cannot bridge it.
-Training stores :func:`estimate_object_radius` in the checkpoint.
+A sparse checkpoint's semantic gate is calibrated on the inference volume
+itself from the probe tiles' probability histogram
+(:func:`calibrate_semantic_threshold_from_histogram`). Training stores
+:func:`estimate_object_radius` in the checkpoint.
 """
 
 from __future__ import annotations
@@ -95,6 +98,50 @@ def derive_dilation(
     )
     d3 = 1 if (iso and d_total >= 2) else 0
     return d3, d_total - d3
+
+
+def calibrate_semantic_threshold_from_histogram(
+    probs: np.ndarray,
+    lo: float = 0.5,
+    bins: int = 128,
+    min_count: int = 1000,
+) -> Optional[float]:
+    """Semantic threshold of a sparse checkpoint from the probability
+    histogram of the inference volume, with no ground truth.
+
+    True foreground saturates near 1.0, while the unsupervised "fat ring"
+    just outside an object decays below it: in logit space a ring mode, a
+    valley and a saturation spike. Otsu's split locates the region between
+    the modes; the threshold is the smoothed histogram's minimum between
+    the split and the saturation mode. Returns None when fewer than
+    ``min_count`` values exceed ``lo`` (no foreground to calibrate on)."""
+    vals = np.asarray(probs, np.float32).ravel()
+    vals = vals[vals > lo]
+    if vals.size < min_count:
+        return None
+    logit = np.log(np.clip(vals, 1e-6, 1 - 1e-7)) - np.log(
+        np.clip(1 - vals, 1e-7, 1)
+    )
+    hist, edges = np.histogram(logit, bins=bins)
+    centers = (edges[:-1] + edges[1:]) / 2
+    kern = np.array([1.0, 4.0, 6.0, 4.0, 1.0])
+    sm = np.convolve(hist.astype(np.float64), kern / kern.sum(), mode="same")
+
+    tot = sm.sum()
+    cum = np.cumsum(sm)
+    cmean = np.cumsum(sm * centers)
+    gmean = cmean[-1] / tot
+    with np.errstate(divide="ignore", invalid="ignore"):
+        between = (gmean * cum - cmean) ** 2 / (cum * (tot - cum))
+    k = int(np.nanargmax(between))
+    if k + 1 >= len(sm):
+        return None
+    m = k + 1 + int(np.argmax(sm[k + 1:]))  # saturation mode
+    if m <= k + 1:
+        t = centers[k]  # no room for a valley: Otsu's split stands
+    else:
+        t = centers[k + 1 + int(np.argmin(sm[k + 1:m]))]
+    return float(1.0 / (1.0 + np.exp(-t)))
 
 
 def estimate_object_radius(

@@ -2,7 +2,8 @@
 
 Port of ``skoots_tpu/infer/device_pipeline.py::make_chunked_pipeline``
 (:274-509) with its fg-compacted assignment (``make_compact_assign_tile``,
-:177-245):
+:177-245), and of its device-thrifty variant ``make_thrifty_pipeline``
+(:518-728):
 
     volume [X, Y, Z] -> instance labels [X, Y, Z] int32, on the device
 
@@ -15,6 +16,10 @@ Port of ``skoots_tpu/infer/device_pipeline.py::make_chunked_pipeline``
 3. assignment over a second tile grid: walk the embedding N steps inside
    the tile (indices clamped to the tile) and gather the component label at
    the final position in the whole volume, gated by bit 1.
+
+The thrifty pipeline keeps the volume in its native dtype, holds no vector
+buffer (phase 3 runs the forward again per assign tile) and compacts the
+labels after CC, to 16 bits when the count fits.
 
 PyTorch runs eagerly, so where the JAX package chunks jitted dispatches the
 port simply loops; phase timings synchronise the device at the phase ends.
@@ -30,7 +35,11 @@ import numpy as np
 import torch
 
 from skoots_tpu_torch.ops.cropper import crop_origins
-from skoots_tpu_torch.ops.flood_fill import make_label_components_stepped
+from skoots_tpu_torch.ops.flood_fill import (
+    _compact_labels,
+    make_label_components_stepped,
+    widen_u16,
+)
 from skoots_tpu_torch.ops.morphology import binary_dilation, binary_dilation_2d
 from skoots_tpu_torch.ops.vec2embed import fma, vector_to_embedding
 from skoots_tpu_torch.utils.device import resolve_device
@@ -116,6 +125,83 @@ def make_compact_assign_tile(a_crop, volume_shape, scale, n: int,
     return assign
 
 
+def _tile_grid(volume_shape, crop, overlap):
+    """The forward's static tile grid: (crop, reflect pads, padded shape,
+    tile origins in padded coordinates, the tile interior)."""
+    crop = tuple(min(c, _round4(d)) for c, d in zip(crop, volume_shape))
+    ov = tuple(min(o, c // 4) for o, c in zip(overlap, crop))
+    pads = [(o, max(o, c - (d + o))) for d, c, o in zip(volume_shape, crop, ov)]
+    padded = tuple(d + p[0] + p[1] for d, p in zip(volume_shape, pads))
+    interior = tuple(slice(o, c - o) for o, c in zip(ov, crop))
+    return crop, pads, padded, crop_origins(padded, crop, ov), interior
+
+
+def _stepped_cc(volume_shape, cc_impl, propagates, jumps, scans):
+    cc_impl = os.environ.get("SKOOTS_CC_IMPL", cc_impl)
+    if cc_impl not in ("auto", "dense"):
+        raise NotImplementedError(
+            f"cc_impl {cc_impl!r}: only the dense propagate engine is ported "
+            "(see ROADMAP.md)")
+    return make_label_components_stepped(
+        volume_shape, rounds_per_dispatch=1, propagates_per_round=propagates,
+        jumps_per_round=jumps, scans_per_round=scans)
+
+
+def _phase_clock(run, device):
+    """Start ``run.last_phase_s``; returns ``mark(tag)``, which synchronises
+    the device and records the seconds since the previous mark."""
+    timing = os.environ.get("SKOOTS_PHASE_TIMING")
+    run.last_phase_s = {}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.time()
+
+    def mark(tag):
+        nonlocal t0
+        sync()
+        t1 = time.time()
+        run.last_phase_s[tag] = round(t1 - t0, 3)
+        if timing:
+            print(f"# phase {tag}: {t1 - t0:.2f}s", flush=True)
+        t0 = t1
+
+    return mark
+
+
+def _assign_plan(volume_shape, assign_crop, vector_scale, n, decay,
+                 compact: bool, device):
+    """The assignment's tile grid (no overlap, no padding): (assign crop,
+    origins, the fg-compacted assign of :func:`make_compact_assign_tile`
+    when ``compact``, else None)."""
+    a_crop = tuple(min(c, _round4(d)) for c, d in zip(assign_crop, volume_shape))
+    a_origins = crop_origins(tuple(volume_shape), a_crop, (0, 0, 0))
+    compact_assign = (make_compact_assign_tile(a_crop, volume_shape, vector_scale,
+                                               n, decay, device)
+                      if compact else None)
+    return a_crop, a_origins, compact_assign
+
+
+def _dense_assign(vtile, fg, labels, o, volume_shape, vector_scale, n, decay,
+                  exit_fraction, exit_cycle, compact_div):
+    """Assignment of one tile by the dense walk (every voxel walks), the
+    label gathered at the walk's end in the whole volume; ``fg`` (or None,
+    no semantic gate) zeroes the background."""
+    x, y, z = volume_shape
+    emb = vector_to_embedding(
+        vector_scale, vtile[None], n=n, decay=decay,
+        exit_fraction=exit_fraction, exit_cycle=exit_cycle,
+        compact_div=compact_div)[0]
+    emb = emb + torch.tensor(o, dtype=torch.float32, device=vtile.device)
+    idx = torch.round(emb).to(torch.int64)
+    tile_inst = labels[idx[..., 0].clamp(0, x - 1), idx[..., 1].clamp(0, y - 1),
+                       idx[..., 2].clamp(0, z - 1)]
+    return tile_inst if fg is None else torch.where(fg, tile_inst, 0)
+
+
 def make_chunked_pipeline(
     model,
     volume_shape: Tuple[int, int, int],
@@ -153,60 +239,24 @@ def make_chunked_pipeline(
     is accepted for signature parity: eager PyTorch has no compiled
     dispatch to chunk. ``run.last_phase_s`` holds the phase split of the
     last call, ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC
-    telemetry.
+    telemetry, ``run.tile_plan`` the tiles of phase 1 and phase 3.
     """
     device = resolve_device(device)
-    cc_impl = os.environ.get("SKOOTS_CC_IMPL", cc_impl)
-    if cc_impl not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"cc_impl {cc_impl!r}: only the dense propagate engine is ported "
-            "(see ROADMAP.md)")
     x, y, z = volume_shape
-    crop = tuple(min(c, _round4(d)) for c, d in zip(crop, volume_shape))
-    ov = tuple(min(o, c // 4) for o, c in zip(overlap, crop))
-    pads = [(o, max(o, c - (d + o))) for d, c, o in zip(volume_shape, crop, ov)]
-    px, py, pz = (d + p[0] + p[1] for d, p in zip((x, y, z), pads))
-    origins = crop_origins((px, py, pz), crop, ov)
+    crop, pads, (px, py, pz), origins, interior = _tile_grid(
+        volume_shape, crop, overlap)
     cx, cy, cz = crop
-    interior = tuple(slice(o, c - o) for o, c in zip(ov, crop))
     sem_thr = prob_threshold if semantic_threshold is None else semantic_threshold
+    stepped_cc = _stepped_cc((x, y, z), cc_impl, cc_propagates_per_round,
+                             cc_jumps_per_round, cc_scans_per_round)
 
-    stepped_cc = make_label_components_stepped(
-        (x, y, z), rounds_per_dispatch=1,
-        propagates_per_round=cc_propagates_per_round,
-        jumps_per_round=cc_jumps_per_round,
-        scans_per_round=cc_scans_per_round,
-    )
-
-    a_crop = tuple(min(c, _round4(d))
-                   for c, d in zip(assign_crop or crop, volume_shape))
-    a_origins = crop_origins((x, y, z), a_crop, (0, 0, 0))
-    compact_assign = (
-        make_compact_assign_tile(a_crop, (x, y, z), vector_scale,
-                                 embed_iterations, embed_decay, device)
-        if (embed_compact_div and semantic_gate) else None
-    )
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    a_crop, a_origins, compact_assign = _assign_plan(
+        volume_shape, assign_crop or crop, vector_scale, embed_iterations,
+        embed_decay, embed_compact_div and semantic_gate, device)
 
     @torch.no_grad()
     def run(volume, mean, std):
-        timing = os.environ.get("SKOOTS_PHASE_TIMING")
-        run.last_phase_s = {}
-        sync()
-        t0 = time.time()
-
-        def mark(tag):
-            nonlocal t0
-            sync()
-            t1 = time.time()
-            run.last_phase_s[tag] = round(t1 - t0, 3)
-            if timing:
-                print(f"# phase {tag}: {t1 - t0:.2f}s", flush=True)
-            t0 = t1
-
+        mark = _phase_clock(run, device)
         if not torch.is_tensor(volume):
             volume = torch.from_numpy(np.ascontiguousarray(volume))
         vol = volume.to(device)
@@ -242,18 +292,10 @@ def make_chunked_pipeline(
             if compact_assign is not None:
                 inst[sl] = compact_assign(vtile, fg, labels, o)
                 continue
-            emb = vector_to_embedding(
-                vector_scale, vtile[None], n=embed_iterations,
-                decay=embed_decay, exit_fraction=embed_exit_fraction,
-                exit_cycle=embed_exit_cycle, compact_div=embed_compact_div)[0]
-            emb = emb + torch.tensor(o, dtype=torch.float32, device=device)
-            idx = torch.round(emb).to(torch.int64)
-            tile_inst = labels[idx[..., 0].clamp(0, x - 1),
-                               idx[..., 1].clamp(0, y - 1),
-                               idx[..., 2].clamp(0, z - 1)]
-            if semantic_gate:
-                tile_inst = torch.where(fg, tile_inst, 0)
-            inst[sl] = tile_inst
+            inst[sl] = _dense_assign(
+                vtile, fg if semantic_gate else None, labels, o, (x, y, z),
+                vector_scale, embed_iterations, embed_decay,
+                embed_exit_fraction, embed_exit_cycle, embed_compact_div)
         mark("3-assign")
         return inst
 
@@ -261,16 +303,160 @@ def make_chunked_pipeline(
     run.last_cc_impl = None
     run.last_cc_rounds = None
     run.last_cc_converged = None
+    run.tile_plan = {"forward": len(origins), "assign": len(a_origins)}
     return run
 
 
-def estimated_device_bytes(volume_shape, thrifty: bool = False) -> int:
-    """Peak device memory of :func:`make_chunked_pipeline`, conservatively:
-    the padded f32 volume (4 B/vox), bf16 vectors (6) and the mask byte (1)
-    in phase 1; int32 labels, CC ping-pong buffers and int32 instances in
-    phases 2-3 -- 24 B/vox covers the worse phase with headroom. With
-    ``thrifty``, the JAX package's estimate for its HBM-thrifty pipeline
-    (uint8 volume, mask, CC working set: 13 B/vox), which the port does not
-    have yet."""
+def _release_cache(device: torch.device) -> None:
+    """Hand the caching allocator's unused blocks back to the card, so the
+    buffers a phase keeps get segments of their own instead of splitting
+    the blocks the previous phase's tiles left, which can strand the free
+    memory a later tile needs."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def make_thrifty_pipeline(
+    model,
+    volume_shape: Tuple[int, int, int],
+    crop: Tuple[int, int, int] = (128, 128, 64),
+    overlap: Tuple[int, int, int] = (16, 16, 8),
+    assign_crop: Tuple[int, int, int] | None = (256, 256, 64),
+    vector_scale: Sequence[float] = (60.0, 60.0, 12.0),
+    prob_threshold: float = 0.8,
+    embed_iterations: int = 10,
+    embed_decay: float = 1.0,
+    embed_exit_fraction: float | None = None,
+    embed_exit_cycle: bool = False,
+    embed_compact_div: int | None = None,
+    dilation_3d: int = 1,
+    dilation_2d: int = 2,
+    semantic_threshold: float | None = None,
+    semantic_gate: bool = True,
+    cc_rounds: int = 32,
+    cc_propagates_per_round: int = 128,
+    cc_jumps_per_round: int = 1,
+    cc_scans_per_round: int = 0,
+    cc_impl: str = "auto",
+    device=None,
+):
+    """The device-thrifty whole-volume pipeline: about 13 B a voxel at its
+    peak instead of :func:`make_chunked_pipeline`'s 24.
+
+    * The volume stays on the device in its native dtype (1 B a voxel for
+      uint8 EM data); each tile is normalised as it is cut.
+    * No vector buffer: phase 3 runs the forward again on each assign tile,
+      without a reflect halo (the walk gathers from the whole label
+      volume, so only the vectors of the tile's border voxels change), and
+      walks the fresh field at once, rounded to f16 as a stored field is.
+    * After CC the labels are compacted to 1..N (``_compact_labels``) and
+      held in 16 bits when N < 2^16, and so is the instance mask.
+    * On a card the allocator's cache is released at the start and after
+      phases 1 and 2 (:func:`_release_cache`).
+
+    Knobs are :func:`make_chunked_pipeline`'s. Returns ``run(volume, mean,
+    std) -> instance labels [X, Y, Z]``, already numbered 1..N: uint16 when
+    N < 2^16 (:func:`widen_u16` widens it), else int32.
+    ``run.last_count`` holds N, ``run.last_phase_s`` the phase split,
+    ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC telemetry and
+    ``run.tile_plan`` the forward's tiles in phase 1 and phase 3.
+    """
+    device = resolve_device(device)
     x, y, z = volume_shape
-    return int(x) * int(y) * int(z) * (13 if thrifty else 24)
+    crop, pads, (px, py, pz), origins, interior = _tile_grid(
+        volume_shape, crop, overlap)
+    cx, cy, cz = crop
+    sem_thr = prob_threshold if semantic_threshold is None else semantic_threshold
+    stepped_cc = _stepped_cc((x, y, z), cc_impl, cc_propagates_per_round,
+                             cc_jumps_per_round, cc_scans_per_round)
+
+    a_crop, a_origins, compact_assign = _assign_plan(
+        volume_shape, assign_crop or crop, vector_scale, embed_iterations,
+        embed_decay, embed_compact_div and semantic_gate, device)
+    lo = tuple(p[0] for p in pads)
+
+    def forward(tile, mean, std):
+        return model(((widen_u16(tile).float() - mean) / std)[None, ..., None])[0]
+
+    @torch.no_grad()
+    def run(volume, mean, std):
+        mark = _phase_clock(run, device)
+        mean, std = float(mean), float(std)
+        _release_cache(device)
+        if not torch.is_tensor(volume):
+            volume = torch.from_numpy(np.ascontiguousarray(volume))
+        vol = volume.to(device)  # native dtype; a uint16 one pads as int16
+        if vol.dtype == torch.uint16:
+            vol = reflect_pad(vol.view(torch.int16), pads).view(torch.uint16)
+        else:
+            vol = reflect_pad(vol, pads)
+        skel_buf = torch.zeros((px, py, pz), dtype=torch.uint8, device=device)
+        for o in origins:
+            out = forward(vol[o[0]:o[0] + cx, o[1]:o[1] + cy, o[2]:o[2] + cz],
+                          mean, std)
+            _, skel_u8, _ = tile_masks(out, prob_threshold, sem_thr,
+                                       dilation_3d, dilation_2d)
+            dst = tuple(slice(oo + s.start, oo + s.stop)
+                        for oo, s in zip(o, interior))
+            skel_buf[dst] = skel_u8[interior]
+        _release_cache(device)
+        mark("1-forward")
+
+        skel = skel_buf[tuple(slice(p, p + d) for p, d in zip(lo, (x, y, z)))]
+        del skel_buf  # the CC takes a contiguous mask as its fg
+        labels = stepped_cc(skel, max_rounds=cc_rounds)
+        del skel
+        run.last_cc_rounds = stepped_cc.last_rounds
+        run.last_cc_converged = stepped_cc.last_converged
+        # held in 16 bits when N fits; gathered and written through the
+        # int16 view, which every device's kernels take, viewed as uint16
+        # on return
+        labels, n = _compact_labels(labels, narrow16=True)
+        run.last_count = n
+        _release_cache(device)
+        mark("2-cc")
+
+        inst = torch.zeros((x, y, z), dtype=labels.dtype, device=device)
+        for o in a_origins:
+            sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
+            out = forward(vol[tuple(slice(oo + p, oo + p + c)
+                                    for oo, p, c in zip(o, lo, a_crop))],
+                          mean, std)
+            prob = out[..., 4]
+            keep = (prob > prob_threshold).to(out.dtype)[..., None]
+            vtile = (out[..., 0:3] * keep).to(torch.float16).float()
+            fg = prob > sem_thr
+            if compact_assign is not None:
+                inst[sl] = compact_assign(vtile, fg, labels, o)
+                continue
+            inst[sl] = _dense_assign(
+                vtile, fg if semantic_gate else None, labels, o, (x, y, z),
+                vector_scale, embed_iterations, embed_decay,
+                embed_exit_fraction, embed_exit_cycle, embed_compact_div)
+        mark("3-assign")
+        return inst.view(torch.uint16) if inst.dtype == torch.int16 else inst
+
+    run.last_phase_s = {}
+    run.last_count = None
+    run.last_cc_rounds = None
+    run.last_cc_converged = None
+    run.tile_plan = {"forward": len(origins), "assign": len(a_origins)}
+    return run
+
+
+def estimated_device_bytes(volume_shape, thrifty: bool = False,
+                           itemsize: int = 1, tile_bytes: int = 0) -> int:
+    """Peak device memory of :func:`make_chunked_pipeline`: 24 B a voxel
+    (phase 1: the padded f32 volume 4, bf16 vectors 6, the mask byte 1;
+    phase 2: vectors and mask 7, the CC's fg 1, labels 4 and scratch 4;
+    phase 3: vectors and mask 7, labels 4, instances 4; the rest covers the
+    input's f32 copies at the start and the allocator's rounding). With
+    ``thrifty``, :func:`make_thrifty_pipeline`'s: 12 B a voxel and the
+    native volume's ``itemsize`` (phase 2: the volume, the mask as the CC's
+    fg 1, labels 4, scratch 4 and the fg test 1, with 2 to spare), 13 for
+    uint8 EM data. Both add ``tile_bytes``, one forward tile's peak (the
+    phase-1 tile; the thrifty assign tile when that is larger), which the
+    caller measures."""
+    x, y, z = volume_shape
+    per_voxel = 12 + int(itemsize) if thrifty else 24
+    return int(x) * int(y) * int(z) * per_voxel + int(tile_bytes)

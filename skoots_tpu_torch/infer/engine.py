@@ -21,14 +21,18 @@ single-device engines:
      a label gather from just the label crop the walks reach (or x-slabs of
      the labels past ``label_crop_budget_bytes``);
 
-* the **whole-volume device pipeline** (``infer/device_pipeline.py``).
+* the **whole-volume device pipeline** (``infer/device_pipeline.py``), in
+  its chunked form or its device-thrifty one (native-dtype volume, no
+  vector buffer, 16-bit labels), which ``auto`` picks where only the
+  thrifty estimate fits the card.
 
 Both drop speck instances, renumber, and write ``<image>_instance_mask.tif``
 (or ``output_path``), ``<image>_skoots_benchmark.txt`` and
-``<image>_skoots_phases.json`` (the stage split). Options that are not
-ported yet -- the thrifty device pipeline, spatial sharding, the
-sparse-checkpoint threshold probe -- raise ``NotImplementedError`` (see
-ROADMAP.md) instead of being ignored.
+``<image>_skoots_phases.json`` (the stage split). A sparse checkpoint's
+semantic gate comes from a probe of the volume itself
+(:func:`_probe_semantic_threshold`), else from the threshold the checkpoint
+records, else ``prob_threshold``. Spatial sharding is not ported yet and
+raises ``NotImplementedError`` (see ROADMAP.md) instead of being ignored.
 """
 
 from __future__ import annotations
@@ -47,12 +51,14 @@ import torch
 from skoots_tpu_torch.checkpoint import load_checkpoint
 from skoots_tpu_torch.infer.autoknobs import (
     REFERENCE_STACK,
+    calibrate_semantic_threshold_from_histogram,
     derive_dilation,
     estimate_skeleton_gap,
 )
 from skoots_tpu_torch.infer.device_pipeline import (
     estimated_device_bytes,
     make_chunked_pipeline,
+    make_thrifty_pipeline,
     tile_masks,
 )
 from skoots_tpu_torch.models import model_from_checkpoint
@@ -66,6 +72,7 @@ from skoots_tpu_torch.ops.flood_fill import (
     efficient_flood_fill,
     renumber,
     renumber_inplace,
+    widen_u16,
 )
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
 from skoots_tpu_torch.utils.device import resolve_device
@@ -78,6 +85,9 @@ _NOT_PORTED = "is not ported to skoots_tpu_torch yet (see ROADMAP.md)"
 # the stage split of the most recent run_inference call (also written to
 # <image>_skoots_phases.json)
 last_stats: dict = {}
+
+# 'auto' takes the host-streaming engine up to this many voxels
+HOST_ENGINE_MAX_VOXELS = 256**3
 
 
 def _pad_amounts(dim: int, crop: int, ov: int) -> Tuple[int, int]:
@@ -358,12 +368,10 @@ def _write_interior(out_arr, tile, origin, crop, overlap, pads, spatial):
     out_arr[tuple(dst)] = tile[tuple(src)]
 
 
-@torch.no_grad()
-def _probe_dilation(model, mean, std, prob_thr, volume, crop, ov, anisotropy,
-                    device, n_probe: int = 4):
-    """Minimum skeleton spacing over up to ``n_probe`` centre-most tiles of
-    the host engine's grid, run with NO dilation; None when no probe shows
-    two sizeable components (``engine.py:401-425``)."""
+def _probe_tiles(model, mean, std, volume, crop, ov, device, n_probe: int):
+    """The model's output (an eval-mode model records no graph) on up to
+    ``n_probe`` centre-most tiles of the host engine's grid over ``volume``
+    ``[X, Y, Z, 1]``, one tile at a time."""
     spatial = volume.shape[:3]
     pads = [_pad_amounts(d, c, o) for d, c, o in zip(spatial, crop, ov)]
     padded_shape = tuple(d + p[0] + p[1] for d, p in zip(spatial, pads))
@@ -372,16 +380,46 @@ def _probe_dilation(model, mean, std, prob_thr, volume, crop, ov, anisotropy,
         crop_origins(padded_shape, crop, ov),
         key=lambda o: sum((a - b) ** 2 for a, b in zip(o, center)),
     )[:n_probe]
-    gap = None
     for o in origins:
         tile = torch.from_numpy(np.asarray(_read_tile(volume, o, crop, pads),
                                            np.float32)).to(device)
-        out = model(((tile - mean) / std)[None])
+        yield model(((tile - mean) / std)[None])
+
+
+def _probe_dilation(model, mean, std, prob_thr, volume, crop, ov, anisotropy,
+                    device, n_probe: int = 4):
+    """Minimum skeleton spacing over up to ``n_probe`` centre-most tiles of
+    the host engine's grid, run with NO dilation; None when no probe shows
+    two sizeable components (``engine.py:401-425``)."""
+    gap = None
+    for out in _probe_tiles(model, mean, std, volume, crop, ov, device, n_probe):
         _, skel, _ = tile_masks(out, prob_thr, prob_thr, 0, 0)
         g = estimate_skeleton_gap(skel[0].cpu().numpy(), anisotropy)
         if g is not None:
             gap = g if gap is None else min(gap, g)
     return gap
+
+
+def _probe_probabilities(model, mean, std, volume, crop, ov, device,
+                         n_probe: int = 4) -> np.ndarray:
+    """The semantic probabilities of the probe tiles, f32, raveled and
+    concatenated."""
+    return np.concatenate([
+        out[..., 4].float().cpu().numpy().ravel()
+        for out in _probe_tiles(model, mean, std, volume, crop, ov, device,
+                                n_probe)])
+
+
+def _probe_semantic_threshold(model, mean, std, volume, crop, ov, device,
+                              n_probe: int = 4) -> Optional[float]:
+    """A sparse checkpoint's semantic threshold, calibrated on the volume
+    itself (``engine.py:428-468``): the valley of the probability histogram
+    of up to ``n_probe`` centre-most probe tiles. The threshold calibrated
+    at training time measures the training distribution, which can sit on
+    the wrong side of an inference volume's boundary ring. None when the
+    probes show too little foreground to calibrate on."""
+    return calibrate_semantic_threshold_from_histogram(_probe_probabilities(
+        model, mean, std, volume, crop, ov, device, n_probe))
 
 
 def _host_memory_report() -> tuple:
@@ -409,11 +447,49 @@ def _stream_stats(volume) -> Tuple[float, float]:
 
 
 def _device_bytes_limit(device: torch.device) -> Optional[int]:
-    """The card's free memory; None off a card (no device limit exists,
-    as JAX reports none on the CPU)."""
+    """The device memory this process can still allocate: the card's free
+    memory and the blocks the allocator holds unused. None off a card (no
+    device limit exists, as JAX reports none on the CPU)."""
     if device.type != "cuda":
         return None
-    return torch.cuda.mem_get_info(device)[0]
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return torch.cuda.mem_get_info(device)[0] + cached
+
+
+def _forward_tile_bytes(model, crops, prob_threshold, sem_thr, dilation_3d,
+                        dilation_2d, device: torch.device) -> int:
+    """Device memory that one forward tile needs: the segments the caching
+    allocator reserves, from an emptied cache, to run a zero f32 tile of
+    the largest of ``crops`` through the model and :func:`tile_masks` (its
+    peak reserved memory, so the blocks a forward cannot reuse count too;
+    this resets the allocator's peak statistics). 0 off a card, where the
+    allocator keeps no statistics."""
+    if device.type != "cuda":
+        return 0
+    crop = max(crops, key=lambda c: int(np.prod(c)))
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        out = model(torch.zeros((1, *crop, 1), device=device))[0]
+        tile_masks(out, prob_threshold, sem_thr, dilation_3d, dilation_2d)
+        del out
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_reserved(device) - base
+
+
+def _device_geometry(volume_shape, crop, crop_size, overlap, assign_crop_size):
+    """The whole-volume pipeline's (tile, overlap, assign tile or None):
+    explicit caller geometry wins; the reference defaults mean "unset" and
+    get 256x256x96 tiles with no overlap, assigned on the same grid."""
+    dev_crop = (256, 256, 96) if tuple(crop_size) == (300, 300, 20) else crop
+    dev_ov = ((0, 0, 0) if tuple(overlap) == (50, 50, 5)
+              else tuple(min(o, c // 4) for o, c in zip(overlap, dev_crop)))
+    dev_assign = (None if tuple(assign_crop_size) == (500, 500, 50)
+                  else tuple(min(a, d) for a, d in zip(assign_crop_size,
+                                                       volume_shape)))
+    return dev_crop, dev_ov, dev_assign
 
 
 def _read_json(path: str):
@@ -469,12 +545,15 @@ def run_inference(
     defaults to the first CUDA card (``"cpu"`` runs every kernel's plain
     version on the CPU; asking for CUDA without one raises).
 
-    ``engine_impl`` ('auto' | 'host' | 'device'; env ``SKOOTS_ENGINE``):
-    'auto' takes the host-streaming engine for volumes of 256^3 voxels or
-    fewer, with a phase-1 cache in play, or with ``out_of_core=True``, and
-    otherwise the whole-volume device pipeline when its estimated memory
-    fits the card's free memory (on the CPU no device limit exists, so
-    'auto' means host there). ``out_of_core`` (default: over 256^3 voxels)
+    ``engine_impl`` ('auto' | 'host' | 'device' | 'device-thrifty'; env
+    ``SKOOTS_ENGINE``): 'auto' takes the host-streaming engine for volumes
+    of 256^3 voxels or fewer, with a phase-1 cache in play, or with
+    ``out_of_core=True``, and otherwise the whole-volume device pipeline
+    when its estimated memory fits the card's free memory, or its
+    device-thrifty form when only that one's estimate fits (each estimate
+    is per-voxel buffers plus one forward tile's peak, which 'auto'
+    measures with a zero tile; on the CPU no device limit exists, so 'auto'
+    means host there). ``out_of_core`` (default: over 256^3 voxels)
     keeps every full-volume host buffer in ``.npy`` memmaps beside the
     image. ``wire_mode`` ('auto' | 'store' | 'recompute'; env
     ``SKOOTS_WIRE_MODE``): 'store' keeps the f16 vector field for phase 3,
@@ -486,8 +565,6 @@ def run_inference(
     if engine_impl not in ("auto", "host", "device", "device-thrifty"):
         raise ValueError(
             f"engine_impl {engine_impl!r} not in auto/host/device/device-thrifty")
-    if engine_impl == "device-thrifty":
-        raise NotImplementedError(f"the device-thrifty pipeline {_NOT_PORTED}")
     if spatial_shards is not None and spatial_shards > 1:
         raise NotImplementedError(f"--spatial-shards > 1 {_NOT_PORTED}")
 
@@ -550,10 +627,22 @@ def run_inference(
 
         if semantic_threshold is None:
             if sparse and not cache_hit:
-                raise NotImplementedError(
-                    f"sparse-checkpoint threshold calibration {_NOT_PORTED}")
-            semantic_threshold = (float(calibrated_thr) if calibrated_thr
-                                  is not None else prob_threshold)
+                semantic_threshold = _probe_semantic_threshold(
+                    model, mean, std, volume[..., None], crop, ov, device)
+                if semantic_threshold is not None:
+                    log.info("semantic gate: volume-calibrated threshold %.6f "
+                             "(probability-histogram valley on probe tiles; "
+                             "vector/skeleton masking stays at %.2f)",
+                             semantic_threshold, prob_threshold)
+            if semantic_threshold is None and calibrated_thr is not None:
+                semantic_threshold = float(calibrated_thr)
+                log.info("semantic gate: checkpoint-calibrated threshold %.6f",
+                         semantic_threshold)
+            if semantic_threshold is None:
+                semantic_threshold = prob_threshold
+                if sparse:
+                    log.info("semantic gate: prob_threshold %.6f (no probe "
+                             "or checkpoint calibration)", semantic_threshold)
 
         if dilation_3d is None or dilation_2d is None:
             if cache_hit:
@@ -575,18 +664,30 @@ def run_inference(
                         "semantic_threshold": semantic_threshold,
                         "dilation_3d": dilation_3d, "dilation_2d": dilation_2d}
 
-        use_device_engine = engine_impl == "device"
+        use_device_engine = engine_impl in ("device", "device-thrifty")
+        thrifty = engine_impl == "device-thrifty"
         # an explicit out_of_core=True pins the host-streaming engine
         if (engine_impl == "auto" and not cache_hit
-                and requested_out_of_core is not True and x * y * z > 256**3):
+                and requested_out_of_core is not True
+                and x * y * z > HOST_ENGINE_MAX_VOXELS):
             limit = _device_bytes_limit(device)
             if limit is not None:
-                if estimated_device_bytes((x, y, z)) <= limit:
+                dev_crop, _, dev_assign = _device_geometry(
+                    (x, y, z), crop, crop_size, overlap, assign_crop_size)
+                tile_bytes = _forward_tile_bytes(
+                    model, [dev_crop, dev_assign or dev_crop], prob_threshold,
+                    semantic_threshold, dilation_3d, dilation_2d, device)
+                est = {"device": estimated_device_bytes(
+                           (x, y, z), tile_bytes=tile_bytes),
+                       "device-thrifty": estimated_device_bytes(
+                           (x, y, z), thrifty=True,
+                           itemsize=volume.dtype.itemsize, tile_bytes=tile_bytes)}
+                stats["auto"] = {"free_bytes": limit, "tile_bytes": tile_bytes,
+                                 "estimated_bytes": est}
+                if est["device"] <= limit:
                     use_device_engine = True
-                elif estimated_device_bytes((x, y, z), thrifty=True) <= limit:
-                    raise NotImplementedError(
-                        f"volume {(x, y, z)} fits {device} only in the "
-                        f"device-thrifty pipeline, which {_NOT_PORTED}")
+                elif est["device-thrifty"] <= limit:
+                    use_device_engine = thrifty = True
 
         if use_device_engine:
             instance_mask = _run_device_engine(
@@ -594,7 +695,7 @@ def run_inference(
                 overlap, assign_crop_size, vec_scale, prob_threshold,
                 embed_iterations, embed_decay, embed_exit_fraction,
                 embed_exit_cycle, dilation_3d, dilation_2d, semantic_threshold,
-                semantic_gate)
+                semantic_gate, thrifty)
             dt = stats["e2e_s"]
             _write_reports(stem, stats, dt, owns_tracing)
             instance_mask, _ = drop_small_instances(instance_mask,
@@ -852,20 +953,18 @@ def _run_device_engine(model, volume, mean, std, device, stats, crop,
                        crop_size, overlap, assign_crop_size, vec_scale,
                        prob_threshold, embed_iterations, embed_decay,
                        embed_exit_fraction, embed_exit_cycle, dilation_3d,
-                       dilation_2d, semantic_threshold, semantic_gate):
-    """The whole-volume device pipeline on the volume; fills ``stats`` and
-    returns the int32 instance mask before the finishers."""
+                       dilation_2d, semantic_threshold, semantic_gate,
+                       thrifty: bool):
+    """The whole-volume device pipeline (its thrifty form with
+    ``thrifty``) on the volume; fills ``stats`` and returns the int32
+    instance mask before the finishers."""
     x, y, z = volume.shape
-    # explicit caller geometry wins; the reference defaults mean "unset" and
-    # get the zero-overlap device grid
-    dev_crop = (256, 256, 96) if tuple(crop_size) == (300, 300, 20) else crop
-    dev_ov = ((0, 0, 0) if tuple(overlap) == (50, 50, 5)
-              else tuple(min(o, c // 4) for o, c in zip(overlap, dev_crop)))
-    dev_assign = (None if tuple(assign_crop_size) == (500, 500, 50)
-                  else tuple(min(a, d) for a, d in zip(assign_crop_size, (x, y, z))))
-    log.info("engine: whole-volume device pipeline on %s (crop=%s overlap=%s)",
-             device, dev_crop, dev_ov)
-    run = make_chunked_pipeline(
+    dev_crop, dev_ov, dev_assign = _device_geometry(
+        (x, y, z), crop, crop_size, overlap, assign_crop_size)
+    log.info("engine: whole-volume device pipeline%s on %s (crop=%s overlap=%s)",
+             " (thrifty)" if thrifty else "", device, dev_crop, dev_ov)
+    make_pipeline = make_thrifty_pipeline if thrifty else make_chunked_pipeline
+    run = make_pipeline(
         model, (x, y, z), crop=dev_crop, overlap=dev_ov, assign_crop=dev_assign,
         vector_scale=vec_scale, prob_threshold=prob_threshold,
         embed_iterations=embed_iterations, embed_decay=embed_decay,
@@ -876,9 +975,12 @@ def _run_device_engine(model, volume, mean, std, device, stats, crop,
         semantic_threshold=semantic_threshold, semantic_gate=semantic_gate,
         device=device)
     bench_start = time.time()
-    instance_mask = run(volume, mean, std).cpu().numpy().astype(np.int32)
-    stats["engine"] = "device"
+    # widened on the host: a 16-bit mask crosses the wire as it is
+    instance_mask = widen_u16(run(volume, mean, std).cpu()).numpy().astype(np.int32)
+    stats["engine"] = "device-thrifty" if thrifty else "device"
     stats["device"] = str(device)
     stats["phase_s"] = dict(run.last_phase_s)
+    stats["tile_plan"] = dict(run.tile_plan)
+    stats["cc_rounds"] = run.last_cc_rounds
     stats["e2e_s"] = round(time.time() - bench_start, 3)
     return instance_mask

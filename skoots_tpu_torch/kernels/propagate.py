@@ -50,12 +50,17 @@ def launch_plan(passes: int, qmax: int = QMAX) -> list[int]:
 
 
 def propagate(labels: torch.Tensor, fg: torch.Tensor, passes: int = 4,
-              connectivity: int = 26, library=None) -> torch.Tensor:
+              connectivity: int = 26, library=None,
+              scratch: torch.Tensor | None = None) -> torch.Tensor:
     """``passes`` propagation steps. ``labels`` int32 ``[X, Y, Z]``; ``fg``
     uint8 or bool ``[X, Y, Z]``. Plain passes for CPU tensors, the CUDA
     kernel (``len(launch_plan(passes))`` launches) for CUDA tensors.
     ``library``: another build of ``csrc/propagate.cu`` to launch (its own
-    tile and QMAX; ``tools/bench_propagate.py`` times candidates so)."""
+    tile and QMAX; ``tools/bench_propagate.py`` times candidates so).
+    ``scratch``: an int32 buffer of ``labels``' shape, zero wherever ``fg``
+    is; with it the launches ping-pong between ``scratch`` and contiguous
+    ``labels`` (both overwritten; the result is one of them) and allocate
+    no volume of their own."""
     if labels.device.type == "cpu":
         for _ in range(passes):
             labels = propagate_ref(labels, fg, connectivity)
@@ -83,7 +88,15 @@ def propagate(labels: torch.Tensor, fg: torch.Tensor, passes: int = 4,
                                             x, y, z, stream), "propagate tile list")
     # zeroed once: a launch writes only the listed tiles, and the others are
     # zero in every launch's output (fg is fixed within the call)
-    bufs = [torch.zeros_like(src) for _ in range(min(len(plan), 2))]
+    if scratch is not None:
+        # the labels are zero off fg, so they serve as the second buffer
+        _build.check_operands("propagate", labels.device,
+                              scratch=(scratch, labels.shape))
+        if scratch.dtype != torch.int32 or not scratch.is_contiguous():
+            raise ValueError("propagate: scratch must be contiguous int32")
+        bufs = [scratch, src]
+    else:
+        bufs = [torch.zeros_like(src) for _ in range(min(len(plan), 2))]
     for i, q in enumerate(plan):
         dst = bufs[i % 2]
         code = lib.skoots_propagate(src.data_ptr(), fg.data_ptr(), dst.data_ptr(),

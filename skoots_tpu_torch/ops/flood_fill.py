@@ -42,14 +42,29 @@ def _check_connectivity(connectivity: int) -> None:
         raise ValueError(f"connectivity must be 6 or 26, got {connectivity}")
 
 
+# voxels a whole-volume helper touches at once: its temporaries are slabs of
+# this many voxels, never the volume
+SLAB_VOXELS = 1 << 22
+
+
+def _slabs(n: int):
+    return ((s, min(s + SLAB_VOXELS, n)) for s in range(0, n, SLAB_VOXELS))
+
+
 def _init_labels(binary: torch.Tensor):
+    """(fg uint8, labels int32 = raveled index + 1 on fg, else 0). A
+    contiguous uint8 ``binary`` serves as fg itself (any nonzero value is
+    foreground), so only the labels are allocated."""
     x, y, z = binary.shape
     if x * y * z >= 2**31:
         raise ValueError("volume too large for int32 voxel addresses")
-    fg = (binary > 0).to(torch.uint8)
-    idx = torch.arange(1, x * y * z + 1, dtype=torch.int32,
-                       device=binary.device).view(x, y, z)
-    return fg, torch.where(fg > 0, idx, 0)
+    if binary.dtype == torch.uint8 and binary.is_contiguous():
+        fg = binary
+    else:
+        fg = (binary > 0).to(torch.uint8)
+    labels = torch.arange(1, x * y * z + 1, dtype=torch.int32,
+                          device=binary.device).view(x, y, z)
+    return fg, labels.mul_(fg > 0)
 
 
 def _one_round(fg: torch.Tensor, lab: torch.Tensor, connectivity: int,
@@ -60,6 +75,25 @@ def _one_round(fg: torch.Tensor, lab: torch.Tensor, connectivity: int,
         tgt = (lab - 1).clamp_min(0).reshape(-1)
         lab = torch.where(lab > 0, flat[tgt].view(lab.shape), 0)
     return lab
+
+
+def _jump_into(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """One pointer jump ``dst <- src > 0 ? src[src - 1] : 0``, slab by slab
+    (``dst`` must not be ``src``: every gather reads the old labels)."""
+    flat, out = src.view(-1), dst.view(-1)
+    for s, e in _slabs(flat.numel()):
+        seg = flat[s:e]
+        torch.index_select(flat, 0, (seg - 1).clamp_min_(0), out=out[s:e])
+        out[s:e].masked_fill_(seg == 0, 0)
+
+
+def _label_sum(lab: torch.Tensor) -> torch.Tensor:
+    """The labels' int64 sum (a device scalar), summed slab by slab."""
+    flat = lab.view(-1)
+    total = torch.zeros((), dtype=torch.int64, device=lab.device)
+    for s, e in _slabs(flat.numel()):
+        total += flat[s:e].sum(dtype=torch.int64)
+    return total
 
 
 def label_components(
@@ -116,17 +150,31 @@ def make_label_components_stepped(
         raise ValueError("volume too large for int32 voxel addresses")
 
     def label(binary: torch.Tensor, max_rounds: int = 64) -> torch.Tensor:
+        # Two int32 volumes in all: the labels and one scratch buffer, which
+        # the propagation takes as its second ping-pong buffer and the jump
+        # as its output. Labels never decrease (a pass takes a maximum
+        # that includes the voxel itself, a jump reads the label of a voxel
+        # whose own label started at, and so is at least, the one read), so
+        # a round changed nothing exactly when their sum did not move.
         fg, labels = _init_labels(binary)
+        scratch = torch.zeros_like(labels)
+        total = _label_sum(labels)
         rounds = 0
         converged = False
         for _ in range(0, max_rounds, rounds_per_dispatch):
-            new = labels
             for _ in range(rounds_per_dispatch):
-                new = _one_round(fg, new, connectivity, propagates_per_round,
-                                 jumps_per_round)
+                new = propagate(labels, fg, passes=propagates_per_round,
+                                connectivity=connectivity, scratch=scratch)
+                if new is scratch:
+                    scratch = labels
+                labels = new
+                for _ in range(jumps_per_round):
+                    _jump_into(labels, scratch)
+                    labels, scratch = scratch, labels
             rounds += rounds_per_dispatch
-            changed = bool((new != labels).any())
-            labels = new
+            new_total = _label_sum(labels)
+            changed = bool(new_total != total)
+            total = new_total
             if not changed:
                 converged = True
                 break
@@ -182,18 +230,51 @@ class _UnionFind:
             self.parent[max(ra, rb)] = min(ra, rb)
 
 
-def _compact_labels(labels: torch.Tensor) -> Tuple[torch.Tensor, int]:
+def narrow_u16(labels: torch.Tensor) -> torch.Tensor:
+    """int32 labels in [0, 2^16) as a uint16 tensor, built through int16:
+    torch's kernels for uint16 are few, those for int16 complete."""
+    return torch.where(labels > 32767, labels - 65536,
+                       labels).to(torch.int16).view(torch.uint16)
+
+
+def widen_u16(t: torch.Tensor) -> torch.Tensor:
+    """A uint16 tensor (the thrifty pipeline's labels, a 16-bit EM volume)
+    as int32, through its int16 view (:func:`narrow_u16`'s inverse). Any
+    other tensor is returned as it is."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t
+
+
+def _compact_labels(labels: torch.Tensor,
+                    narrow16: bool = False) -> Tuple[torch.Tensor, int]:
     """Converged tile labels (raveled index + 1 of each component's maximum
-    voxel, which alone points to itself) to 1..N in root order: a cumsum
-    ranks the roots, a gather at ``label - 1`` reads each voxel's rank.
-    Returns ``(compacted int32 tile, N)``."""
+    voxel, which alone points to itself) to 1..N in root order: a voxel's
+    new label is the number of roots at or below its label, found by a
+    binary search in the sorted root labels. Works in place, slab by slab,
+    so no temporary spans the volume. Returns ``(compacted int32 labels,
+    N)``; with ``narrow16`` and N < 2^16, the compacted labels go into a new
+    int16 tensor instead, as uint16 bit patterns (``view(torch.uint16)``
+    reads them)."""
     flat = labels.reshape(-1)
     if flat.numel() == 0:
         return labels, 0
-    iota = torch.arange(1, flat.numel() + 1, dtype=torch.int32, device=flat.device)
-    rank = torch.cumsum((flat == iota).to(torch.int32), 0, dtype=torch.int32)
-    comp = torch.where(flat > 0, rank[(flat - 1).clamp_min(0).long()], 0)
-    return comp.view(labels.shape), int(rank[-1])
+    roots = []
+    for s, e in _slabs(flat.numel()):
+        seg = flat[s:e]
+        iota = torch.arange(s + 1, e + 1, dtype=torch.int32, device=flat.device)
+        roots.append(iota[seg == iota])
+    roots = torch.cat(roots)
+    n = int(roots.numel())
+    out = flat
+    if narrow16 and n < 2**16:
+        out = torch.empty(flat.shape, dtype=torch.int16, device=flat.device)
+    for s, e in _slabs(flat.numel()):
+        seg = flat[s:e]
+        comp = torch.searchsorted(roots, seg, right=True, out_int32=True)
+        comp.masked_fill_(seg == 0, 0)
+        out[s:e] = narrow_u16(comp).view(torch.int16) if out is not flat else comp
+    return out.view(labels.shape), n
 
 
 def _unpack_bits_dev(packed: torch.Tensor) -> torch.Tensor:

@@ -222,12 +222,10 @@ def test_entry_points_without_cuda_raise(tmp_path, tiny):
 
 def test_auto_engine_is_host_on_cpu(tmp_path, tiny):
     """On the CPU no device limit exists, so ``auto`` is the host engine at
-    any size, as JAX's on the CPU; the thrifty pipeline raises."""
+    any size, as JAX's on the CPU."""
     ckpt, img, _ = tiny
     path = str(tmp_path / "v.npy")
     np.save(path, img)
     torch_run(path, ckpt, device="cpu", output_path=str(tmp_path / "m.npy"),
               **dict(TINY_KW, engine_impl="auto"))
     assert json.load(open(tmp_path / "v_skoots_phases.json"))["engine"] == "host"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_run(path, ckpt, device="cpu", engine_impl="device-thrifty")

@@ -365,8 +365,7 @@ def test_cli_matches_jax_cli_on_bench_checkpoint(tmp_path):
     assert min(ious) >= 0.95
 
 
-@pytest.mark.parametrize("flag", [["--engine", "device-thrifty"],
-                                  ["--spatial-shards", "2"], ["--experimental"]])
+@pytest.mark.parametrize("flag", [["--spatial-shards", "2"], ["--experimental"]])
 def test_cli_unported_options_raise(tmp_path, flag):
     """Engines and flags the port does not have yet raise instead of being
     ignored."""
