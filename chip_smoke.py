@@ -74,10 +74,27 @@ them. In order:
    ``train.engine.train`` for 2 epochs of 8 steps through the whole
    augmentation with the launch counts set to 0 before and read after, and
    the saved checkpoint loaded back and run;
-13. prints one JSON line of per-kernel results (each with its least time on
+13. ground-truth skeletons: ``train.generate_skeletons.calculate_skeletons``
+    with Lee thinning (host C++) on the training phase's two volumes, every
+    instance with a point and >= 95% of the points in their own instance;
+14. sparse training (``experimental.sparse_engine``) at the same cfg with
+    ``IS_SPARSE``, on those volumes and skeletons as in-memory
+    ``SparseRecord``s: 8 steps on one batch (the step split), then
+    ``train_sparse`` for 2 epochs of 8 steps, the launch counts set to 0
+    before and read after (exact: per step and per forward of the threshold
+    calibrator), every loss finite, the ``*_sparse.skoots`` checkpoint with
+    a calibrated threshold, reloaded; then ``run_inference`` with it on a
+    128x128x64 block of the 256^3 phantom, printing which semantic gate won;
+15. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
+
+Before the kernels it reads the bench training cfg with the port's own YAML
+reader (no PyYAML); after the host engine it runs ``skoots-torch
+--experimental`` (``cli.main``) on the 256^3 phantom, launch counts read,
+with the tuned knobs printed and the instance count beside the default
+run's; the kernel checks include the bake at the sparse loss's shape.
 
 Every phase raises on failure; nothing here catches it. Imports no JAX.
 """
@@ -166,6 +183,12 @@ LN_HEAD_CASES = (
 # scale and residual with their four roundings)
 TAIL_FP32_PER_HIDDEN, TAIL_FP32_PER_LN, TAIL_FP32_PER_OUT = 16, 8, 7
 REPEATS = 5
+# sparse training (the bench training cfg, IS_SPARSE): steps an epoch of its
+# 2 epochs, the background's least distance from a tube, the points of its
+# bake (the cfg's MAX_SKELETON_POINTS), and the block of the 256^3 host
+# phantom its checkpoint segments
+SPARSE_STEPS, SPARSE_BG_DIST, SPARSE_BAKE_POINTS = 8, 6, 256
+SPARSE_BLOCK = (slice(64, 192), slice(64, 192), slice(96, 160))
 # launches of each forward kernel in one forward of the bench model
 FORWARD_KERNELS_PER_TILE = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1,
                             "upsample2x": 2}
@@ -610,11 +633,12 @@ def _launch_counters():
             "propagate": prop_mod.propagate}
 
 
-def run_host_engine(results: list) -> None:
+def run_host_engine(results: list):
     """The host-streaming engine through ``run_inference`` at its defaults
     on a seeded 256^3 tube phantom (uint8 ``.npy``) with the bench
     checkpoint, then its ``--use-cached`` and out-of-core reruns, then a
-    128x128x32 block on the card and on the CPU."""
+    128x128x32 block on the card and on the CPU. Returns the phantom, the
+    default run's instance count and the tubes placed."""
     import shutil
 
     import torch
@@ -674,7 +698,7 @@ def run_host_engine(results: list) -> None:
     for name, k in per_forward.items():
         _need(counts[name] == k * forwards,
               f"{name}: {counts[name]} launches, expected {k} x {forwards} forwards")
-    n = len(np.unique(mask)) - 1
+    n = n_default = len(np.unique(mask)) - 1
     _need(0.8 * n_expected <= n <= n_expected + 4,
           f"n_instances {n} outside [0.8*{n_expected}, {n_expected}+4]")
     for r in results:
@@ -728,6 +752,7 @@ def run_host_engine(results: list) -> None:
           "the host engine's instances on the card differ from the CPU's")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    return vol, n_default, n_expected
 
 
 def run_slice(results: list):
@@ -1262,6 +1287,27 @@ def check_train_kernels(results: list) -> None:
                 bound(nbytes(masks, pts_t, ids_t, *got), fp32_flops=11.0 * pairs))
         del got, ref
 
+    # 2b. the sparse loss's bake: every point of a sample as one instance
+    #    against an all-ones mask (closest_skeleton), P = the bench cfg's
+    #    MAX_SKELETON_POINTS with a quarter of it padding; exact
+    p = SPARSE_BAKE_POINTS
+    ones = torch.ones(shape, dtype=torch.int32, device="cuda")
+    ids_t = torch.from_numpy((np.arange(p) < p - p // 4).astype(np.int32)).cuda()
+    pts_t = torch.from_numpy((rng.random((p, 3)) * np.asarray(shape)).astype(np.float32)).cuda()
+    got = bake_skeleton_kernel(ones, pts_t, ids_t, (1.0, 1.0, 3.0))
+    ref = bake_skeleton_ref(ones, pts_t, ids_t, (1.0, 1.0, 3.0))
+    torch.cuda.synchronize()
+    diff = int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
+    err_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    _record(results, "bake_skeleton", "skoots_tpu_torch/csrc/bake.cu",
+            "skoots_tpu/kernels/bake.py:112", float(diff), err_abs, 0.0,
+            f"values differing at the sparse loss's V={ones.numel()} P={p}, all fg",
+            _time_ms(lambda: bake_skeleton_kernel(ones, pts_t, ids_t, (1.0, 1.0, 3.0))),
+            _time_ms(lambda: bake_skeleton_ref(ones, pts_t, ids_t, (1.0, 1.0, 3.0))),
+            bound(nbytes(ones, pts_t, ids_t, *got),
+                  fp32_flops=11.0 * ones.numel() * float(ids_t.sum())))
+    del got, ref, ones
+
     # 3. the depthwise conv's bf16 input gradient (the forward kernel on the
     #    cotangent with tap-flipped weights) against its plain composition,
     #    at the training levels; 1 bf16 ulp
@@ -1379,10 +1425,11 @@ def check_grads_against_cpu() -> None:
     _need(worst <= 1e-3, f"gradient {worst_name} differs between card and CPU")
 
 
-def run_train_slice(results: list) -> None:
+def run_train_slice(results: list) -> list:
     """The training path at the bench checkpoint's training cfg (bf16, crop
     96x96x32, batch 1) on two seeded 256x256x32 tube volumes with 8 tubes
-    each, held in memory as ``VolumeRecord`` objects."""
+    each, held in memory as ``VolumeRecord`` objects. Returns the volumes'
+    (image, labels)."""
     import torch
 
     from skoots_tpu_torch.checkpoint import load_checkpoint
@@ -1507,6 +1554,374 @@ def run_train_slice(results: list) -> None:
           f"{ckpt['extra']['epoch']}, reloaded forward "
           f"{'equal' if same else 'DIFFERENT'}", flush=True)
     _need(same, "the reloaded checkpoint's forward differs from the trained model's")
+    return [(r.image, r.masks) for r in records]
+
+
+def check_yaml_reader() -> None:
+    """``config.load_cfg_from_file`` on the bench checkpoint's training cfg
+    with PyYAML blocked (the port's own YAML reader): it merges, validates,
+    and agrees with the cfg the checkpoint embeds on every key of the
+    file."""
+    import importlib.util
+
+    from skoots_tpu_torch.config import load_cfg_from_file, load_yaml, to_plain
+
+    path = os.path.join(ROOT, "runs", "bench_ckpt_train", "cfg.yaml")
+    installed = importlib.util.find_spec("yaml") is not None
+    blocked = sys.modules.get("yaml", False)
+    sys.modules["yaml"] = None  # any import of PyYAML now raises
+    try:
+        cfg = load_cfg_from_file(path)
+        with open(path) as f:
+            keys = [(sec, k) for sec, d in load_yaml(f.read()).items() for k in d]
+    finally:
+        if blocked is False:
+            del sys.modules["yaml"]
+        else:
+            sys.modules["yaml"] = blocked
+    ckpt_cfg = _bench_train_cfg()
+    differ = [f"{s}.{k}" for s, k in keys if to_plain(cfg[s][k]) != to_plain(ckpt_cfg[s][k])]
+    print(f"yaml reader: {os.path.relpath(path, ROOT)} merged and validated with PyYAML "
+          f"blocked (installed on this machine: {installed}): {len(keys)} keys, MODEL.DIMS "
+          f"{cfg['MODEL']['DIMS']}, TRAIN.SIGMA_DECAY {cfg['TRAIN']['SIGMA_DECAY']}; keys "
+          f"differing from the checkpoint's cfg: {differ}", flush=True)
+    _need(not differ and len(keys) > 10, f"the YAML reader's cfg differs at {differ}")
+
+
+def run_experimental(results: list, vol, n_default: int, n_expected: int) -> None:
+    """``skoots-torch --experimental`` (``cli.main``) with the bench
+    checkpoint on the 256^3 host phantom as ``.npy``: the knobs the tuned
+    eval passed to ``run_inference``, launch counts set to 0 just before
+    and read just after (every forward kernel per forward, propagate per CC
+    round, its plain version may not run), the instance count beside the
+    default run's."""
+    import shutil
+
+    import torch
+
+    from skoots_tpu_torch import cli
+    from skoots_tpu_torch.experimental import eval as experimental_eval
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+
+    work = os.path.join(ROOT, "build", "experimental_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "phantom.npy")
+    np.save(path, vol)
+    ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    seen = {}
+    real = experimental_eval.run_inference
+
+    def recording(*args, **kwargs):
+        seen.update(kwargs)
+        return real(*args, **kwargs)
+
+    kernels = _launch_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    saved = prop_mod.propagate_ref, experimental_eval.run_inference
+    prop_mod.propagate_ref, experimental_eval.run_inference = _no_plain_propagation, recording
+    try:
+        t0 = time.time()
+        rc = cli.main(["--image", path, "--pretrained-checkpoint", ckpt, "--log", "1",
+                       "--experimental"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        prop_mod.propagate_ref, experimental_eval.run_inference = saved
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    stats = json.loads(json.dumps(engine.last_stats))
+    mask = np.load(os.path.join(work, "phantom_instance_mask.npy"))
+    n = len(np.unique(mask)) - 1
+    knobs = {k: seen.get(k) for k in ("prob_threshold", "dilation_3d", "dilation_2d",
+                                      "embed_iterations", "embed_decay")}
+    print(f"--experimental: rc {rc}, {n} instances (default knobs: {n_default}; "
+          f"{n_expected} tubes placed) in {wall:.3f} s, knobs in effect {json.dumps(knobs)}, "
+          f"engine {stats['engine']}", flush=True)
+    print(f"--experimental launches: {json.dumps(counts)}", flush=True)
+    _need(rc == 0 and n >= 1, f"--experimental: rc {rc}, {n} instances")
+    _need(knobs == {"prob_threshold": 0.5, "dilation_3d": 0, "dilation_2d": 3,
+                    "embed_iterations": 10, "embed_decay": 0.95},
+          f"--experimental ran with {knobs}")
+    forwards = stats["phase1"]["tiles"] + (stats["phase3"]["tiles"]
+                                           if stats["wire_mode"] == "recompute" else 0)
+    for name, k in FORWARD_KERNELS_PER_TILE.items():
+        _need(counts[name] == k * forwards,
+              f"--experimental {name}: {counts[name]} launches, expected {k} x {forwards}")
+    _need(counts["propagate"] == stats["phase2"]["cc_rounds"] > 0,
+          f"--experimental propagate: {counts['propagate']} launches against "
+          f"{stats['phase2']['cc_rounds']} CC rounds")
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def run_skeletonize(volumes) -> list:
+    """``train.generate_skeletons.calculate_skeletons(method="lee")`` (the
+    host C++ Lee thinning, built at first use) on the training phase's
+    seeded tube ``volumes`` (image, labels): every instance gets a point
+    and at least 95% of the points lie in their own instance. Returns
+    (image, labels, skeletons) per volume."""
+    from skoots_tpu_torch.train.generate_skeletons import calculate_skeletons
+
+    vols = []
+    for i, (img, labels) in enumerate(volumes):
+        t0 = time.time()
+        skels = calculate_skeletons(labels, method="lee")
+        dt = time.time() - t0
+        ids = [int(k) for k in np.unique(labels) if k]
+        own = total = 0
+        for k, pts in skels.items():
+            ii = np.clip(np.round(pts).astype(int), 0, np.asarray(labels.shape) - 1)
+            own += int((labels[ii[:, 0], ii[:, 1], ii[:, 2]] == k).sum())
+            total += len(pts)
+        print(f"skeletonize (lee) volume {i} {labels.shape}: {dt:.3f} s (host; the first "
+              f"call builds the library), {len(skels)} of {len(ids)} instances, "
+              f"{total} points, {own / max(total, 1):.4f} inside their own instance",
+              flush=True)
+        _need(sorted(skels) == ids and all(len(v) >= 1 for v in skels.values()),
+              f"skeletonize: instances {ids}, skeletons {sorted(skels)}")
+        _need(own >= 0.95 * total, f"skeletonize: {own} of {total} points in their instance")
+        vols.append((img, labels, skels))
+    return vols
+
+
+def run_sparse_train(results: list, vols) -> str:
+    """Sparse training at the bench checkpoint's training cfg (bf16, crop
+    96x96x32, batch 1, ``IS_SPARSE``) on in-memory ``SparseRecord``s of
+    ``vols`` (background: more than ``SPARSE_BG_DIST`` voxels from a tube;
+    the Lee skeletons as the annotation): 8 steps on one augmented batch
+    for the step split, then ``train_sparse`` for 2 epochs of
+    ``SPARSE_STEPS`` with the launch counts set to 0 before and read after
+    (exact: per step and per calibrator forward), every loss finite, the
+    checkpoint reloaded. Returns the checkpoint's path."""
+    import logging
+
+    import torch
+    from scipy import ndimage
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.experimental.data import SparseDataset, SparseRecord
+    from skoots_tpu_torch.experimental.sparse_engine import (
+        make_sparse_augment,
+        make_sparse_train_step,
+        train_sparse,
+    )
+    from skoots_tpu_torch.experimental.sparse_loss import sparse_loss, vector_direction_penalty
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+    from skoots_tpu_torch.kernels.upsample import upsample2x
+    from skoots_tpu_torch.models import init_model, model_from_checkpoint
+    from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
+    from skoots_tpu_torch.train.data import batch_iterator
+    from skoots_tpu_torch.train.engine import cfg_optimizer
+    from skoots_tpu_torch.train.sigma import init_sigma
+
+    dev = torch.device("cuda")
+    cfg = _bench_train_cfg()
+    t = cfg["TRAIN"]
+    t["NUM_EPOCHS"], t["SAVE_INTERVAL"] = 2, 2
+    t["SAVE_PATH"] = os.path.join(ROOT, "build", "sparse_smoke")
+    cfg["EXPERIMENTAL"]["IS_SPARSE"] = True
+    seed = t["SEED"]
+    records = [SparseRecord(img.astype(np.float32),
+                            (ndimage.distance_transform_edt(labels == 0) > SPARSE_BG_DIST)
+                            .astype(np.float32), None, skels, f"tubes{i}")
+               for i, (img, labels, skels) in enumerate(vols)]
+
+    # 8 steps on one augmented batch, split with CUDA events
+    dataset = SparseDataset(records, cfg, sample_per_image=t["TRAIN_SAMPLE_PER_IMAGE"][0])
+    mean = float(np.mean([r.image.mean() for r in dataset.records]))
+    std = float(np.mean([r.image.std() for r in dataset.records]))
+    augment = make_sparse_augment(cfg, mean, std, dev)
+    host_batches = list(batch_iterator(dataset, t["TRAIN_BATCH_SIZE"], 8, seed)(0))
+    gen = torch.Generator().manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, seed, device=dev).train()
+    opt, sched = cfg_optimizer(cfg, model.parameters())
+    step = make_sparse_train_step(model, opt, sched, init_sigma(cfg), cfg)
+    fixed = augment(host_batches[0], gen)
+    losses, splits = [], []
+    for i in range(8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        augment(host_batches[i], gen)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        total, metrics = step.loss_fn(fixed, 0)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        step.apply_update(0)
+        ev[4].record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        splits.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+    peak = torch.cuda.max_memory_allocated()
+    warm = np.median(np.asarray(splits[1:]), axis=0)
+    print(f"sparse train losses over 8 steps on one batch: "
+          f"{[round(v, 6) for v in losses]}", flush=True)
+    print(f"sparse train step split (warm median of 7, ms): augment {warm[0]:.3f} "
+          f"forward+loss {warm[1]:.3f} backward {warm[2]:.3f} optimizer {warm[3]:.3f} "
+          f"step {warm[1:].sum():.3f}; peak_device_memory_bytes {peak}", flush=True)
+    _need(all(np.isfinite(losses)), f"a sparse loss is not finite: {losses}")
+
+    # the step's parts: the model's forward, the sparse loss (its bake and
+    # loop included) and its direction penalty, each forward and backward
+    scale = torch.tensor(cfg["SKOOTS"]["VECTOR_SCALING"], dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        out = model(fixed["image"])
+    vec = out[..., 0:3].float().requires_grad_()
+    sem = out[..., 4:5].float().requires_grad_()
+
+    def loss_of(v, s_):
+        return sum(sparse_loss(vector_to_embedding(tuple(scale.tolist()), v), v * scale,
+                               fixed["points"], fixed["valid"], fixed["background"], s_,
+                               init_sigma(cfg)(0), tuple(cfg["AUGMENTATION"][
+                                   "BAKE_SKELETON_ANISOTROPY"]),
+                               float(cfg["EXPERIMENTAL"]["DIST_THR"]),
+                               float(cfg["EXPERIMENTAL"]["SPARSE_BACKGROUND_PENALTY_MULTIPLIER"])
+                               )[:2])
+
+    def backward_ms(fn):
+        return _time_ms(lambda: torch.autograd.grad(fn(), fn.inputs)) - _time_ms(fn)
+
+    parts = {}
+    with torch.no_grad():
+        parts["model forward"] = _time_ms(lambda: model(fixed["image"]))
+    loss_fn = lambda: loss_of(vec, sem)  # noqa: E731
+    loss_fn.inputs = (vec, sem)
+    pen_fn = lambda: vector_direction_penalty(vec * scale).mean()  # noqa: E731
+    pen_fn.inputs = (vec,)
+    parts["sparse loss forward"] = _time_ms(loss_fn)
+    parts["sparse loss backward"] = backward_ms(loss_fn)
+    parts["direction penalty forward"] = _time_ms(pen_fn)
+    parts["direction penalty backward"] = backward_ms(pen_fn)
+    print(f"sparse step parts (median of {REPEATS}, ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}", flush=True)
+    del model, opt, step, fixed, out, vec, sem
+
+    # train_sparse: 2 epochs of SPARSE_STEPS, every launch counted
+    kernels = {"dwconv3d": dwconv3d, "dwconv3d_wgrad": dwconv3d_wgrad,
+               "mlp_block_tail": mlp_block_tail, "ln_head": ln_head,
+               "upsample2x": upsample2x, "bake_skeleton": bake_skeleton_kernel}
+    epochs = []
+
+    class _Epochs(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("sparse epoch"):
+                epochs.append(record.args[1])
+
+    handler = _Epochs()
+    sparse_log = logging.getLogger("skoots_tpu_torch.experimental.sparse_engine")
+    sparse_log.addHandler(handler)
+    level = sparse_log.level
+    sparse_log.setLevel(logging.INFO)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    try:
+        t0 = time.time()
+        state = train_sparse(cfg, steps_per_epoch=SPARSE_STEPS, device=dev, records=records)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        sparse_log.removeHandler(handler)
+        sparse_log.setLevel(level)
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    n, fwd = state.step, state.calibration_forwards
+    per_step = {"dwconv3d": 21, "dwconv3d_wgrad": 11, "mlp_block_tail": 10, "ln_head": 1,
+                "upsample2x": 2, "bake_skeleton": t["TRAIN_BATCH_SIZE"]}
+    per_forward = {**{k: 0 for k in per_step}, **FORWARD_KERNELS_PER_TILE}
+    print(f"train_sparse: {n} steps and {fwd} calibrator forwards in {wall:.3f} s, epoch "
+          f"means {json.dumps(epochs)}", flush=True)
+    print(f"train_sparse launches {json.dumps(counts)} expected {n} x "
+          f"{json.dumps(per_step)} + {fwd} x {json.dumps(per_forward)}", flush=True)
+    _need(len(epochs) == 2 and all(np.isfinite(e["loss"]) and e["skipped"] == 0
+                                   for e in epochs), f"sparse epochs {epochs}")
+    _need(n == 2 * SPARSE_STEPS and fwd >= 1, f"train_sparse ran {n} steps, {fwd} forwards")
+    for name, c in counts.items():
+        want = n * per_step[name] + fwd * per_forward[name]
+        _need(c == want, f"train_sparse {name}: {c} launches, expected {want}")
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+
+    ckpt = load_checkpoint(state.save_name)
+    extra = ckpt["extra"]
+    loaded = model_from_checkpoint(ckpt, device=dev)
+    x = augment(host_batches[1], gen)["image"]
+    with torch.no_grad():
+        same = torch.equal(state.saved_model.eval()(x), loaded(x))
+    print(f"sparse checkpoint {os.path.basename(state.save_name)}: extra {json.dumps(extra)}, "
+          f"reloaded forward {'equal' if same else 'DIFFERENT'}", flush=True)
+    _need(same, "the reloaded sparse checkpoint's forward differs")
+    _need(extra["calibrated_prob_threshold"] is not None and extra["swa"] is True,
+          f"sparse checkpoint extra {extra}")
+    torch.cuda.empty_cache()
+    return state.save_name
+
+
+def run_sparse_inference(results: list, ckpt_path: str, vol) -> None:
+    """``run_inference`` with the sparse checkpoint on the ``SPARSE_BLOCK``
+    block of the host phantom (``.npy`` in and out), launch counts set to 0
+    just before and read just after; prints which semantic gate won, as the
+    engine logs it."""
+    import logging
+    import shutil
+
+    import torch
+
+    from skoots_tpu_torch.infer import engine
+
+    work = os.path.join(ROOT, "build", "sparse_smoke", "infer")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "block.npy")
+    np.save(path, np.ascontiguousarray(vol[SPARSE_BLOCK]))
+    gates = []
+
+    class _Gate(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("semantic gate"):
+                gates.append(record.getMessage())
+
+    handler = _Gate()
+    engine_log = logging.getLogger(engine.__name__)
+    engine_log.addHandler(handler)
+    level = engine_log.level
+    engine_log.setLevel(logging.INFO)
+    kernels = _launch_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    try:
+        t0 = time.time()
+        mask = engine.run_inference(path, ckpt_path, output_path=os.path.join(work, "m.npy"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        engine_log.removeHandler(handler)
+        engine_log.setLevel(level)
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    source = ("probe" if any("volume-calibrated" in g for g in gates) else
+              "calibrated" if any("checkpoint-calibrated" in g for g in gates) else "default")
+    n = len(np.unique(np.asarray(mask))) - 1
+    print(f"sparse checkpoint inference on a {tuple(mask.shape)} block: semantic gate from "
+          f"the {source} ({gates}), {n} instances, {wall:.3f} s, launches "
+          f"{json.dumps(counts)}", flush=True)
+    forwards = counts["dwconv3d"] // FORWARD_KERNELS_PER_TILE["dwconv3d"]
+    _need(len(gates) == 1 and forwards >= 1
+          and all(counts[k] == v * forwards for k, v in FORWARD_KERNELS_PER_TILE.items()),
+          f"sparse inference: gates {gates}, launches {counts}")
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+    shutil.rmtree(os.path.join(ROOT, "build", "sparse_smoke"), ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1531,10 +1946,12 @@ def main() -> int:
     print(f"tensor-core instructions (cuobjdump -sass): "
           f"{json.dumps(tensor_core_sass(_build.library_path()))}", flush=True)
 
+    check_yaml_reader()
     results = check_kernels()
     check_microbenchmarks(results)
     check_train_kernels(results)
-    run_host_engine(results)
+    host_phantom, n_default, n_expected = run_host_engine(results)
+    run_experimental(results, host_phantom, n_default, n_expected)
     ckpt, model, volume, chunked, chunked_peak, chunked_run = run_slice(results)
     check_against_cpu(ckpt, model, volume)
     torch.cuda.empty_cache()
@@ -1547,7 +1964,9 @@ def main() -> int:
     del vol_u8
     torch.cuda.empty_cache()
     check_grads_against_cpu()
-    run_train_slice(results)
+    train_volumes = run_train_slice(results)
+    sparse_ckpt = run_sparse_train(results, run_skeletonize(train_volumes))
+    run_sparse_inference(results, sparse_ckpt, host_phantom)
     for r in results:
         r.pop("_largest")
     print(json.dumps({"kernels": results}), flush=True)

@@ -3,11 +3,11 @@ surface of ``skoots_tpu/cli.py:26-196`` on the PyTorch/CUDA port.
 
 Every argument of the JAX CLI is accepted, plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs every kernel's plain version on the CPU).
-The ones whose feature is not ported yet (``--skeletonize-train-data``,
-``--experimental``, ``--spatial-shards`` > 1) raise
+``--spatial-shards`` > 1 is not ported yet and raises
 ``NotImplementedError``; see ROADMAP.md.
 
     python -m skoots_tpu_torch --image vol.tif --pretrained-checkpoint m.skoots
+    python -m skoots_tpu_torch --skeletonize-train-data DIR [--skeletonize-method lee]
 """
 
 from __future__ import annotations
@@ -25,8 +25,6 @@ _LOG_LEVELS = {
     3: logging.DEBUG,
     4: logging.DEBUG,
 }
-
-_NOT_PORTED = "is not ported to skoots_tpu_torch yet (see ROADMAP.md)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -146,20 +144,29 @@ def main(argv=None) -> int:
         format="[%(asctime)s] %(levelname)s [%(name)s]: %(message)s",
     )
     if args.skeletonize_train_data:
-        raise NotImplementedError(f"--skeletonize-train-data {_NOT_PORTED}")
+        from skoots_tpu_torch.train.generate_skeletons import create_gt_skeletons
+
+        create_gt_skeletons(
+            args.skeletonize_train_data,
+            mask_suffix=args.mask_filter + ".tif",
+            scale=(1.0 / args.downscaleXY, 1.0 / args.downscaleXY, 1.0 / args.downscaleZ),
+            method=args.skeletonize_method,
+        )
+        return 0
     if args.convert:
         from skoots_tpu_torch.utils.convert import convert
 
         convert(args.convert)
         return 0
-    if args.experimental:
-        raise NotImplementedError(f"--experimental {_NOT_PORTED}")
     if not args.image or not args.pretrained_checkpoint:
         print("usage: skoots-torch --image I.tif --pretrained-checkpoint M.skoots",
               file=sys.stderr)
         return 2
 
-    from skoots_tpu_torch.infer.engine import run_inference
+    if args.experimental:
+        from skoots_tpu_torch.experimental.eval import eval as infer_fn
+    else:
+        from skoots_tpu_torch.infer.engine import run_inference as infer_fn
 
     if os.path.isdir(args.image):
         files = sorted(glob.glob(os.path.join(args.image, "*.tif")))
@@ -168,7 +175,7 @@ def main(argv=None) -> int:
         files = [args.image]
 
     for f in files:
-        run_inference(
+        infer_fn(
             f,
             args.pretrained_checkpoint,
             use_cached_data=args.use_cached,

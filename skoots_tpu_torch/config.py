@@ -6,7 +6,8 @@ section dicts: ``cfg["TRAIN"]["SEED"]``.
 
 * :func:`get_cfg_defaults` -- a fresh copy of the defaults;
 * :func:`merge_from_dict` / :func:`load_cfg_from_file` -- the strict merge:
-  an unknown key raises (PyYAML is imported only inside the file loader);
+  an unknown key raises; the file is read by :func:`load_yaml`, the YAML
+  subset cfg files use, so no PyYAML is needed;
 * :func:`cfg_from_dict` -- the lenient merge of a checkpoint's embedded cfg,
   which keeps unknown keys so checkpoints of other versions still load;
 * :func:`validate_cfg` -- the reference validators, raising ``ValueError``.
@@ -15,6 +16,7 @@ section dicts: ``cfg["TRAIN"]["SEED"]``.
 from __future__ import annotations
 
 import copy
+import re
 import warnings
 from typing import Any, Dict
 
@@ -245,12 +247,359 @@ def validate_cfg(cfg: dict) -> None:
     _require(ct["VALIDATE_EPOCH_SKIP"] >= 1, "cannot skip negative numbers")
 
 
-def load_cfg_from_file(path: str) -> dict:
-    """Defaults strictly merged with a YAML file, then validated."""
-    import yaml
+class YamlSubsetError(ValueError):
+    """The text uses YAML beyond what :func:`load_yaml` reads."""
 
+
+# PyYAML's YAML 1.1 implicit resolvers (``yaml/resolver.py``): a plain
+# scalar takes the first tag whose pattern matches, in this order
+_RESOLVERS = (
+    ("bool", re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                        r"|on|On|ON|off|Off|OFF)$")),
+    ("float", re.compile(r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?
+                    |\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+                    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*
+                    |[-+]?\.(?:inf|Inf|INF)
+                    |\.(?:nan|NaN|NAN))$""", re.X)),
+    ("int", re.compile(r"""^(?:[-+]?0b[0-1_]+
+                    |[-+]?0[0-7_]+
+                    |[-+]?(?:0|[1-9][0-9_]*)
+                    |[-+]?0x[0-9a-fA-F_]+
+                    |[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$""", re.X)),
+    ("merge", re.compile(r"^(?:<<)$")),
+    ("null", re.compile(r"^(?:~|null|Null|NULL|)$")),
+    ("timestamp", re.compile(r"""^(?:[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
+                    |[0-9][0-9][0-9][0-9] -[0-9][0-9]? -[0-9][0-9]?
+                     (?:[Tt]|[ \t]+)[0-9][0-9]?
+                     :[0-9][0-9] :[0-9][0-9] (?:\.[0-9]*)?
+                     (?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)$""", re.X)),
+    ("value", re.compile(r"^(?:=)$")),
+)
+_ESCAPES = {"0": "\0", "a": "\x07", "b": "\x08", "t": "\t", "\t": "\t", "n": "\n",
+            "v": "\x0b", "f": "\x0c", "r": "\r", "e": "\x1b", " ": " ", '"': '"',
+            "\\": "\\", "/": "/", "N": "\x85", "_": "\xa0", "L": "\u2028",
+            "P": "\u2029"}
+_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+_UNSUPPORTED_START = "&*!|>%@`"
+
+
+def _sexagesimal(text: str, cast):
+    value = cast(0)
+    for part in text.split(":"):
+        value = value * 60 + cast(part)
+    return value
+
+
+def _plain_scalar(text: str, line: int, flow: bool = False) -> Any:
+    """A plain scalar resolved and constructed as ``yaml.safe_load`` does."""
+    if text[:1] in _UNSUPPORTED_START:
+        raise YamlSubsetError(f"line {line}: anchors, aliases, tags and block "
+                              f"scalars are not read ({text!r})")
+    # what may start a plain scalar (PyYAML's scanner, check_plain)
+    first, second = text[:1], text[1:2]
+    if first in ",[]{}#'\"" or (first in "-:?" and (second in ("", " ")
+                                                   or (flow and first != "-"))):
+        raise YamlSubsetError(f"line {line}: an indicator where a value belongs ({text!r})")
+    tag = next(t for t, pattern in _RESOLVERS + (("str", re.compile("")),)
+               if pattern.match(text))
+    if tag in ("merge", "timestamp", "value"):
+        raise YamlSubsetError(f"line {line}: a {tag} scalar is not read ({text!r})")
+    if tag == "str":
+        return text
+    if tag == "null":
+        return None
+    if tag == "bool":
+        return text.lower() in ("yes", "true", "on")
+    value = text.replace("_", "")
+    sign = -1 if value[0] == "-" else 1
+    if value[0] in "+-":
+        value = value[1:]
+    if tag == "int":
+        if value == "0":
+            return 0
+        if value.startswith("0b"):
+            return sign * int(value[2:], 2)
+        if value.startswith("0x"):
+            return sign * int(value[2:], 16)
+        if value[0] == "0":
+            return sign * int(value, 8)
+        return sign * (_sexagesimal(value, int) if ":" in value else int(value))
+    value = value.lower()
+    if value == ".inf":
+        return sign * float("inf")
+    if value == ".nan":
+        return float("nan")
+    return sign * (_sexagesimal(value, float) if ":" in value else float(value))
+
+
+class _Flow:
+    """Cursor over one flow collection or quoted scalar (possibly joined
+    from several lines)."""
+
+    def __init__(self, text: str, line: int):
+        self.text, self.pos, self.line = text, 0, line
+
+    def fail(self, what: str):
+        raise YamlSubsetError(f"line {self.line}: {what} in {self.text!r}")
+
+    def skip_space(self) -> None:
+        while self.pos < len(self.text) and self.text[self.pos] == " ":
+            self.pos += 1
+
+    def peek(self) -> str:
+        return self.text[self.pos:self.pos + 1]
+
+    def quoted(self) -> str:
+        quote = self.text[self.pos]
+        self.pos += 1
+        out = []
+        while True:
+            if self.pos >= len(self.text):
+                self.fail("unterminated quoted scalar")
+            ch = self.text[self.pos]
+            if quote == "'" and ch == "'":
+                if self.text[self.pos + 1:self.pos + 2] == "'":
+                    out.append("'")
+                    self.pos += 2
+                    continue
+                self.pos += 1
+                return "".join(out)
+            if quote == '"' and ch == '"':
+                self.pos += 1
+                return "".join(out)
+            if quote == '"' and ch == "\\":
+                esc = self.text[self.pos + 1:self.pos + 2]
+                if esc in _ESCAPES:
+                    out.append(_ESCAPES[esc])
+                    self.pos += 2
+                elif esc in _HEX_ESCAPES:
+                    n = _HEX_ESCAPES[esc]
+                    digits = self.text[self.pos + 2:self.pos + 2 + n]
+                    if len(digits) != n or not all(c in "0123456789abcdefABCDEF"
+                                                   for c in digits):
+                        self.fail(f"bad escape \\{esc}{digits}")
+                    out.append(chr(int(digits, 16)))
+                    self.pos += 2 + n
+                else:
+                    self.fail(f"unknown escape \\{esc}")
+                continue
+            out.append(ch)
+            self.pos += 1
+
+    def scalar(self) -> Any:
+        if self.peek() in ("'", '"'):
+            return self.quoted()
+        start = self.pos
+        while self.pos < len(self.text):
+            ch = self.text[self.pos]
+            if ch in ",[]{}":
+                break
+            if ch == ":" and self.text[self.pos + 1:self.pos + 2] in ("", " ", ",", "[",
+                                                                      "]", "{", "}"):
+                break
+            self.pos += 1
+        text = self.text[start:self.pos].rstrip()
+        if not text:
+            self.fail("empty flow entry")
+        return _plain_scalar(text, self.line, flow=True)
+
+    def node(self) -> Any:
+        self.skip_space()
+        ch = self.peek()
+        if ch not in ("[", "{"):
+            return self.scalar()
+        close = "]" if ch == "[" else "}"
+        self.pos += 1
+        items: Any = [] if ch == "[" else {}
+        while True:
+            self.skip_space()
+            if self.peek() == close:
+                self.pos += 1
+                return items
+            if ch == "[":
+                items.append(self.node())
+            else:
+                key = self.node()
+                self.skip_space()
+                if self.peek() != ":":
+                    self.fail("expected ':' in a flow mapping")
+                self.pos += 1
+                items[key] = self.node()
+            self.skip_space()
+            if self.peek() == ",":
+                self.pos += 1
+            elif self.peek() != close:
+                self.fail(f"expected ',' or {close!r}")
+
+
+def _outside_quotes(text: str):
+    """``(i, ch)`` for every character of a line outside its quoted scalars
+    (a quote opens at the start or after a space, ``[``, ``{``, ``,`` or
+    ``:``; ``''`` and backslash escapes stay inside)."""
+    quote, i = None, 0
+    while i < len(text):
+        ch = text[i]
+        if quote == "'" and ch == "'" and text[i + 1:i + 2] == "'":
+            i += 2
+            continue
+        if quote == '"' and ch == "\\":
+            i += 2
+            continue
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in ("'", '"') and (i == 0 or text[i - 1] in " [{,:"):
+            quote = ch
+        else:
+            yield i, ch
+        i += 1
+
+
+def _strip_comment(text: str) -> str:
+    """``text`` without a trailing ``# comment`` (a ``#`` at the start or
+    after a space, outside quotes)."""
+    for i, ch in _outside_quotes(text):
+        if ch == "#" and (i == 0 or text[i - 1] == " "):
+            return text[:i].rstrip()
+    return text.rstrip()
+
+
+def _key_split(text: str):
+    """``(key, rest)`` at the first ``: `` (or a final ``:``) outside quotes,
+    or None when the line holds no key (a line that opens a flow
+    collection holds none)."""
+    if text[:1] in "[{":
+        return None
+    for i, ch in _outside_quotes(text):
+        if ch == ":" and text[i + 1:i + 2] in ("", " "):
+            return text[:i].rstrip(), text[i + 1:].strip()
+    return None
+
+
+def load_yaml(text: str) -> Any:
+    """``yaml.safe_load(text)`` for the YAML that cfg files use, without
+    PyYAML: block mappings, block sequences (also indentless ones and
+    ``- -`` nesting), flow sequences and mappings (also over several lines),
+    plain and quoted scalars resolved by YAML 1.1 as PyYAML resolves them
+    (``1e-3`` stays a string, ``1.0e-3`` is a float, ``yes`` is True, ``~``
+    None), and comments. Anything else (anchors, aliases, tags, block or
+    multi-line scalars, complex keys, tabs in indentation, several
+    documents) raises :class:`YamlSubsetError` with its line number."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        stripped = raw.lstrip(" ")
+        if stripped.startswith("\t") or (stripped and raw[:len(raw) - len(stripped)]
+                                          .count("\t")):
+            raise YamlSubsetError(f"line {n}: a tab in the indentation")
+        content = _strip_comment(stripped)
+        if content:
+            lines.append([n, len(raw) - len(stripped), content])
+    if lines and lines[0][2] == "---":
+        lines.pop(0)
+    if lines and lines[-1][2] == "...":
+        lines.pop()
+    for n, _, content in lines:
+        if content in ("---", "...") or content.startswith(("--- ", "%")):
+            raise YamlSubsetError(f"line {n}: directives and several documents "
+                                  "are not read")
+    if not lines:
+        return None
+    pos = 0
+
+    def inline(n: int, content: str) -> Any:
+        """The value written on one line after ``key:`` or ``- ``."""
+        nonlocal pos
+        if content[0] in "[{'\"":
+            joined = content
+            flow = _Flow(joined, n)
+            while True:  # a flow collection may continue on the next lines
+                try:
+                    flow.pos = 0
+                    value = flow.node()
+                    break
+                except YamlSubsetError:
+                    if content[0] in "'\"" or pos >= len(lines):
+                        raise
+                    joined += " " + lines[pos][2]
+                    pos += 1
+                    flow = _Flow(joined, n)
+            flow.skip_space()
+            if flow.pos != len(joined):
+                flow.fail("text after the value")
+            return value
+        if _key_split(content) is not None:
+            raise YamlSubsetError(f"line {n}: a mapping on the line of its key "
+                                  "is not read")
+        return _plain_scalar(content, n)
+
+    def block(indent: int) -> Any:
+        nonlocal pos
+        n, ind, content = lines[pos]
+        if ind != indent:
+            raise YamlSubsetError(f"line {n}: unexpected indentation")
+        is_seq = content == "-" or content.startswith("- ")
+        out: Any = [] if is_seq else {}
+        while pos < len(lines):
+            n, ind, content = lines[pos]
+            if ind < indent:
+                break
+            if ind > indent:
+                raise YamlSubsetError(f"line {n}: unexpected indentation "
+                                      "(multi-line scalars are not read)")
+            if is_seq:
+                if not (content == "-" or content.startswith("- ")):
+                    break
+                rest = content[1:].lstrip(" ")
+                if rest and (rest == "-" or rest.startswith("- ")
+                             or _key_split(rest) is not None):
+                    # "- - x" or "- key: v": the rest opens a block one level in
+                    lines[pos] = [n, ind + len(content) - len(rest), rest]
+                    out.append(block(lines[pos][1]))
+                    continue
+                pos += 1
+                out.append(inline(n, rest) if rest else nested(indent, seq=True))
+                continue
+            split = _key_split(content)
+            if split is None:
+                if content == "-" or content.startswith("- "):
+                    break
+                raise YamlSubsetError(f"line {n}: expected 'key: value'")
+            key_text, rest = split
+            if not key_text:
+                raise YamlSubsetError(f"line {n}: complex keys are not read")
+            key = inline(n, key_text)
+            pos += 1
+            out[key] = inline(n, rest) if rest else nested(indent, seq=False)
+        return out
+
+    def nested(indent: int, seq: bool) -> Any:
+        """The block under a ``key:`` or ``-`` that ends its line."""
+        if pos >= len(lines):
+            return None
+        _, ind, content = lines[pos]
+        if ind > indent:
+            return block(ind)
+        if not seq and ind == indent and (content == "-" or content.startswith("- ")):
+            return block(ind)  # an indentless sequence under a key
+        return None
+
+    first = lines[0]
+    if _key_split(first[2]) is None and not (first[2] == "-" or first[2].startswith("- ")):
+        pos = 1  # a document of one scalar or flow collection
+        value = inline(first[0], first[2])
+    else:
+        value = block(first[1])
+    if pos < len(lines):
+        raise YamlSubsetError(f"line {lines[pos][0]}: text after the document's value "
+                              "(or an unexpected indentation)")
+    return value
+
+
+def load_cfg_from_file(path: str) -> dict:
+    """Defaults strictly merged with a YAML file (read by :func:`load_yaml`,
+    no PyYAML needed), then validated."""
     with open(path) as f:
-        data = yaml.safe_load(f) or {}
+        data = load_yaml(f.read()) or {}
     cfg = merge_from_dict(get_cfg_defaults(), data)
     validate_cfg(cfg)
     return cfg

@@ -1,5 +1,5 @@
 """Data-derived knobs (numpy/scipy; copied from
-``skoots_tpu/infer/autoknobs.py:34-110,178-228,254-286``).
+``skoots_tpu/infer/autoknobs.py:34-110,123-228,230-286``).
 
 Auto mode runs a few probe tiles with NO dilation, measures the minimum
 spacing between sizeable connected components of the raw thresholded
@@ -7,7 +7,9 @@ skeleton, and picks the largest dilation stack that cannot bridge it.
 A sparse checkpoint's semantic gate is calibrated on the inference volume
 itself from the probe tiles' probability histogram
 (:func:`calibrate_semantic_threshold_from_histogram`). Training stores
-:func:`estimate_object_radius` in the checkpoint.
+:func:`estimate_object_radius` in the checkpoint; sparse training checks
+its ``DIST_THR`` against :func:`suggest_dist_thr_from_points` and records
+the threshold of :func:`calibrate_semantic_threshold`.
 """
 
 from __future__ import annotations
@@ -98,6 +100,69 @@ def derive_dilation(
     )
     d3 = 1 if (iso and d_total >= 2) else 0
     return d3, d_total - d3
+
+
+def suggest_dist_thr_from_points(skeletons: dict, sample_cap: int = 4000) -> Optional[float]:
+    """Sparse training's ``DIST_THR`` suggestion from skeleton points alone:
+    half the minimum spacing between points of DIFFERENT instances, the
+    largest pull radius that cannot attract a voxel across the midline to
+    another instance's skeleton. None with fewer than two instances."""
+    from scipy.spatial import cKDTree
+
+    pts = {k: np.asarray(v, np.float64) for k, v in skeletons.items()
+           if k != 0 and np.asarray(v).size}
+    if len(pts) < 2:
+        return None
+    budget = max(8, sample_cap // len(pts))
+    sampled = []
+    for v in pts.values():
+        stride = max(1, len(v) // budget)
+        sampled.append(v[::stride])
+    gap = np.inf
+    for i, p in enumerate(sampled):
+        others = np.concatenate([q for j, q in enumerate(sampled) if j != i])
+        d, _ = cKDTree(others).query(p, k=1)
+        gap = min(gap, float(d.min()))
+    return max(1.0, round(gap / 2.0, 1))
+
+
+def sparse_target_fg_fraction(
+    skeletons: dict,
+    shape: Sequence[int],
+    dist_thr: float,
+    anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+) -> Optional[float]:
+    """Fraction of a volume that sparse supervision declares foreground:
+    the anisotropy-weighted ``dist_thr`` ball around the annotated points,
+    the geometry the sparse embedding loss pulls toward. None without
+    points."""
+    from scipy import ndimage
+
+    pts = [np.asarray(v) for v in skeletons.values() if np.asarray(v).size]
+    if not pts:
+        return None
+    mask = np.ones(tuple(int(s) for s in shape), bool)
+    ii = np.clip(np.round(np.concatenate(pts)).astype(int), 0, np.asarray(shape) - 1)
+    mask[ii[:, 0], ii[:, 1], ii[:, 2]] = False
+    edt = ndimage.distance_transform_edt(mask, sampling=[float(a) for a in anisotropy])
+    return float((edt <= dist_thr).mean())
+
+
+def calibrate_semantic_threshold(
+    prob_values: np.ndarray,
+    target_fg_frac: float,
+    lo: float = 0.5,
+    hi: float = 0.9999,
+) -> float:
+    """The semantic threshold whose foreground volume matches the
+    supervision's: the ``1 - target_fg_frac`` quantile of the predicted
+    probabilities, clamped to ``[lo, hi]`` so a degenerate probability map
+    never disables the gate. Sparse training supervises the semantic head
+    only through ``embed_prob > 0.2``, so the fixed 0.8 of dense
+    checkpoints sits on the wrong side of its transition."""
+    vals = np.asarray(prob_values, np.float32).ravel()
+    frac = float(np.clip(target_fg_frac, 1e-6, 0.9))
+    return float(np.clip(np.quantile(vals, 1.0 - frac), lo, hi))
 
 
 def calibrate_semantic_threshold_from_histogram(

@@ -27,7 +27,7 @@ single-device engines:
   thrifty estimate fits the card.
 
 Both drop speck instances, renumber, and write ``<image>_instance_mask.tif``
-(or ``output_path``), ``<image>_skoots_benchmark.txt`` and
+(``.npy`` for a ``.npy`` image, or ``output_path``), ``<image>_skoots_benchmark.txt`` and
 ``<image>_skoots_phases.json`` (the stage split). A sparse checkpoint's
 semantic gate comes from a probe of the volume itself
 (:func:`_probe_semantic_threshold`), else from the threshold the checkpoint
@@ -514,6 +514,14 @@ def _write_reports(stem: str, stats: dict, dt: float, owns_tracing: bool):
     return peak
 
 
+def _default_mask_path(image_path: str) -> str:
+    """``<image>_instance_mask.tif``, or ``.npy`` for a ``.npy`` image, so
+    that a machine without Pillow writes the mask of a ``.npy`` volume (the
+    JAX package writes a tif for every input)."""
+    stem, ext = os.path.splitext(image_path)
+    return stem + "_instance_mask" + (".npy" if ext.lower() == ".npy" else ".tif")
+
+
 def run_inference(
     image_path: str,
     checkpoint_path: str,
@@ -701,7 +709,7 @@ def run_inference(
             instance_mask, _ = drop_small_instances(instance_mask,
                                                     min_instance_size)
             instance_mask, _ = renumber(instance_mask)
-            out_path = output_path or (stem + "_instance_mask.tif")
+            out_path = output_path or _default_mask_path(image_path)
             imsave(out_path, instance_mask)
             log.info("device-pipeline segmentation took %.2fs -> %s", dt, out_path)
             return instance_mask
@@ -817,7 +825,7 @@ def run_inference(
             instance_mask, _ = drop_small_instances(instance_mask,
                                                     min_instance_size)
             instance_mask, _ = renumber(instance_mask)
-        out_path = output_path or (stem + "_instance_mask.tif")
+        out_path = output_path or _default_mask_path(image_path)
         imsave(out_path, instance_mask)
         log.info("wrote %s (total %.2fs)", out_path, time.time() - t_start)
         return instance_mask

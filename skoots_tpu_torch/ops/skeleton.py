@@ -54,15 +54,21 @@ def bake_skeleton(
     masks: torch.Tensor,
     skeletons: PackedSkeletons,
     anisotropy: Tuple[float, float, float] = (1.0, 1.0, 1.0),
-) -> torch.Tensor:
-    """Per-voxel closest skeleton vertex of the voxel's own instance,
-    smoothed with :func:`average_baked_skeletons`, as training uses it.
+    average: bool = True,
+    return_distance: bool = False,
+):
+    """Per-voxel closest skeleton vertex of the voxel's own instance.
 
     ``masks`` ``[X, Y, Z]`` integer instance ids (0 = background);
-    ``anisotropy`` weights the squared per-axis distances. Returns baked
-    ``[X, Y, Z, 3]`` f32 (0 at background)."""
-    baked, _ = bake_skeleton_kernel(masks, skeletons.points, skeletons.ids, anisotropy)
-    return average_baked_skeletons(baked[None])[0]
+    ``anisotropy`` weights the squared per-axis distances. ``average``
+    smooths the baked field with :func:`average_baked_skeletons`, as
+    training uses it. Returns baked ``[X, Y, Z, 3]`` f32 (0 at background),
+    and with ``return_distance`` also the ``[X, Y, Z]`` distances the
+    kernel found (of the unsmoothed points)."""
+    baked, dist = bake_skeleton_kernel(masks, skeletons.points, skeletons.ids, anisotropy)
+    if average:
+        baked = average_baked_skeletons(baked[None])[0]
+    return (baked, dist) if return_distance else baked
 
 
 def _window_sum(t: torch.Tensor, k: int) -> torch.Tensor:

@@ -5,10 +5,12 @@ training CLI (port of ``skoots_tpu/train/cli.py``).
         [--steps-per-epoch N] [--device cuda]
 
 Loads and validates the YAML cfg (the JAX package's schema), builds the
-datasets, augments every batch on ``--device`` and trains there. One device
-only: a mesh (``SYSTEM.MESH_DATA`` other than -1 or 1, ``MESH_SPACE`` other
-than 1) and sparse training raise ``NotImplementedError``. The device is
-explicit (default ``cuda``); nothing falls back to the CPU.
+datasets, augments every batch on ``--device`` and trains there; a cfg with
+``EXPERIMENTAL.IS_SPARSE`` trains sparse
+(``experimental/sparse_engine.py::train_sparse``). One device only: a mesh
+(``SYSTEM.MESH_DATA`` other than -1 or 1, ``MESH_SPACE`` other than 1) of
+dense training raises ``NotImplementedError``. The device is explicit
+(default ``cuda``); nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ def run_config(cfg_path: str, device: str, steps_per_epoch=None):
     cfg = load_cfg_from_file(cfg_path)
     t = cfg["TRAIN"]
     if cfg["EXPERIMENTAL"]["IS_SPARSE"]:
-        raise NotImplementedError("sparse training is not ported yet (see ROADMAP.md)")
+        from skoots_tpu_torch.experimental.sparse_engine import train_sparse
+
+        return train_sparse(cfg, steps_per_epoch=steps_per_epoch, device=device)
     if cfg["SYSTEM"]["MESH_DATA"] not in (-1, 1) or cfg["SYSTEM"]["MESH_SPACE"] != 1:
         raise NotImplementedError(
             "the port trains on one device: SYSTEM.MESH_DATA must be -1 or 1 and "

@@ -9,13 +9,14 @@ device (``train/transforms.py``).
 File contract per volume (reference dataloader.py:96-114):
     <name>.tif              image
     <name>.labels.tif       instance masks
-    <name>.skeletons.npz    ground-truth skeletons ({id: [M, 3]}; .trch too)
-Skeletonising a volume without a skeleton file is not ported yet.
+    <name>.skeletons.npz    ground-truth skeletons ({id: [M, 3]}; .trch too;
+                            made by Lee thinning and written when absent)
 """
 
 from __future__ import annotations
 
 import glob
+import logging
 import os
 import queue
 import threading
@@ -23,8 +24,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from skoots_tpu_torch.train.generate_skeletons import calculate_skeletons, load_skeletons
+from skoots_tpu_torch.train.generate_skeletons import (
+    calculate_skeletons,
+    load_skeletons,
+    save_skeletons,
+)
 from skoots_tpu_torch.utils.io import imread
+
+log = logging.getLogger(__name__)
 
 
 class VolumeRecord:
@@ -57,7 +64,12 @@ def _load_dir(p: str, background: bool) -> List[VolumeRecord]:
             raise FileNotFoundError(f"no image for {f}: expected {img_path}")
         masks = imread(f).astype(np.int32)
         skel_path = _find_skeletons(base)
-        skeletons = load_skeletons(skel_path) if skel_path else calculate_skeletons(masks)
+        if skel_path:
+            skeletons = load_skeletons(skel_path)
+        else:
+            log.warning("no skeleton file for %s; computing lee skeletons", base)
+            skeletons = calculate_skeletons(masks, method="lee")
+            save_skeletons(base + ".skeletons.npz", skeletons)
         records.append(VolumeRecord(imread(img_path).astype(np.float32), masks,
                                     skeletons, base))
     return records

@@ -134,9 +134,14 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
         return bool(torch.rand((), generator=gen) < rate)
 
     def geometric_core(sample: Dict[str, torch.Tensor], gen: torch.Generator):
-        """The spatial + intensity pipeline; returns (image, masks, pts, ids)."""
+        """The spatial + intensity pipeline; returns (image, masks, aux, pts,
+        ids). ``sample`` may carry one more volume under ``"aux"`` (sparse
+        training's skeleton mask), nearest-interpolated through every
+        spatial op as the masks are; aux is None without it."""
         image = sample["image"].float()
         masks = sample["masks"].to(torch.int32)
+        aux = sample.get("aux")
+        aux = None if aux is None else aux.float()
         pts = sample["points"].float()
         ids = sample["ids"].to(torch.int32)
         center = sample["center"].float().cpu()
@@ -154,6 +159,8 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
                 mode="trilinear", align_corners=False)[0].permute(1, 2, 3, 0)
             image = _warp_volume(image, disp_full, 1)
             masks = _warp_volume(masks.float(), disp_full, 0).to(torch.int32)
+            if aux is not None:
+                aux = _warp_volume(aux, disp_full, 0)
             pts = pts - _sample_disp_at_points(disp_coarse, pts, spatial)
 
         # affine, about the pre-crop centre; the crop target follows it
@@ -170,6 +177,8 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
                       mesh[..., 2].reshape(-1)]
             image = map_coordinates(image, coords, 1).reshape(spatial)
             masks = map_coordinates(masks.float(), coords, 0).reshape(spatial).to(torch.int32)
+            if aux is not None:
+                aux = map_coordinates(aux, coords, 0).reshape(spatial)
             mat_d = mat.to(dev)
             pxy = torch.stack([pts[:, 0], pts[:, 1], torch.ones_like(pts[:, 0])], -1) @ mat_d.T
             pts = torch.stack([pxy[:, 0], pxy[:, 1], pts[:, 2]], -1)
@@ -183,6 +192,8 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
         o = [int(v) for v in origin.to(torch.int64)]
         image = image[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1], o[2]:o[2] + crop[2]]
         masks = masks[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1], o[2]:o[2] + crop[2]]
+        if aux is not None:
+            aux = aux[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1], o[2]:o[2] + crop[2]]
         pts = pts - torch.tensor(o, dtype=torch.float32, device=dev)
 
         # flips
@@ -190,6 +201,8 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
             if flag(gen, A["FLIP_RATE"]):
                 image = torch.flip(image, (ax,))
                 masks = torch.flip(masks, (ax,))
+                if aux is not None:
+                    aux = torch.flip(aux, (ax,))
                 pts = pts.clone()
                 pts[:, ax] = (crop[ax] - 1) - pts[:, ax]
 
@@ -214,10 +227,11 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
         mean, std = (float(norm[0]), float(norm[1])) if norm is not None \
             else (dataset_mean, dataset_std)
         image = (image - mean) / std
-        return image.contiguous(), masks.contiguous(), pts, ids
+        return (image.contiguous(), masks.contiguous(),
+                None if aux is None else aux.contiguous(), pts, ids)
 
     def augment(sample: Dict[str, torch.Tensor], gen: torch.Generator) -> Dict[str, torch.Tensor]:
-        image, masks, pts, ids = geometric_core(sample, gen)
+        image, masks, _, pts, ids = geometric_core(sample, gen)
         skel = PackedSkeletons(points=pts, ids=ids)
         baked = bake_skeleton(masks, skel, anisotropy=anisotropy)
         skele_mask = skeleton_to_mask(skel, crop, radius=radius, flank_radius=flank)
@@ -228,6 +242,7 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
             "skele_masks": skele_mask[..., None],
         }
 
+    augment.geometric_core = geometric_core
     return augment
 
 

@@ -36,7 +36,11 @@ print(" ".join(names))
 EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample",
             "skoots_tpu_torch.kernels.microbench", "skoots_tpu_torch.ops.flood_fill",
             "skoots_tpu_torch.tools.bench_fma_rate", "skoots_tpu_torch.tools.bench_loadfma",
-            "skoots_tpu_torch.utils.device"}
+            "skoots_tpu_torch.utils.device", "skoots_tpu_torch.experimental.data",
+            "skoots_tpu_torch.experimental.eval", "skoots_tpu_torch.experimental.modifiers",
+            "skoots_tpu_torch.experimental.sparse_engine",
+            "skoots_tpu_torch.experimental.sparse_loss",
+            "skoots_tpu_torch.train.generate_skeletons", "skoots_tpu_torch.utils.lee_thin"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():

@@ -365,10 +365,11 @@ def test_cli_matches_jax_cli_on_bench_checkpoint(tmp_path):
     assert min(ious) >= 0.95
 
 
-@pytest.mark.parametrize("flag", [["--spatial-shards", "2"], ["--experimental"]])
+@pytest.mark.parametrize("flag", [["--spatial-shards", "2"],
+                                  ["--experimental", "--spatial-shards", "2"]])
 def test_cli_unported_options_raise(tmp_path, flag):
     """Engines and flags the port does not have yet raise instead of being
-    ignored."""
+    ignored, also through ``--experimental``'s tuned knobs."""
     vol = tmp_path / "v.tif"
     jax_imsave(str(vol), np.zeros((8, 8, 4), np.uint8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
