@@ -9,8 +9,9 @@ them. In order:
 2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and counts the tensor-core
    instructions (HMMA / HGMMA) of every instantiation of the bf16 block
-   tail, depthwise conv, stem and LN head in the library's SASS
-   (``cuobjdump -sass``; none fails);
+   tail, depthwise conv, stem, LN head and the depthwise conv's and stem's
+   weight gradients in the library's SASS (``cuobjdump -sass``; none
+   fails);
 3. compares every kernel with its plain PyTorch version on the card, at the
    shapes the main paths give it, on seeded random inputs (propagate also
    on the main path's sparse mask: one 192-pass CC round on the 512^3
@@ -94,7 +95,10 @@ Before the kernels it reads the bench training cfg with the port's own YAML
 reader (no PyYAML); after the host engine it runs ``skoots-torch
 --experimental`` (``cli.main``) on the 256^3 phantom, launch counts read,
 with the tuned knobs printed and the instance count beside the default
-run's; the kernel checks include the bake at the sparse loss's shape.
+run's; the kernel checks include the bake at the sparse loss's shape. The
+training kernels' cases and every row's bound come from
+``skoots_tpu_torch.tools.bench_train_kernels``, so this script, that tool
+and the card's tests check the same inputs.
 
 Every phase raises on failure; nothing here catches it. Imports no JAX.
 """
@@ -109,6 +113,10 @@ import sys
 import time
 
 import numpy as np
+
+# one roofline and one set of training-kernel cases with the card's tool
+from skoots_tpu_torch.tools.bench_train_kernels import (ANISO, bake_bound, bake_cases, bound,
+                                                        nbytes, wgrad_bound, wgrad_inputs)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -192,15 +200,9 @@ SPARSE_BLOCK = (slice(64, 192), slice(64, 192), slice(96, 160))
 # launches of each forward kernel in one forward of the bench model
 FORWARD_KERNELS_PER_TILE = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1,
                             "upsample2x": 2}
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
-# FP32 FLOP/s outside the tensor cores (an FMA counts 2, so other
-# instructions issue at half of it), dense bf16 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_TENSOR_FLOP_PER_S = 989e12
 # the hand-written kernels that must run on the tensor cores (bf16)
 TENSOR_CORE_KERNELS = ("tail_tc_kernel", "dwconv3d_tc_kernel", "stem_gemm_kernel",
-                       "ln_head_tc_kernel")
+                       "ln_head_tc_kernel", "dwconv3d_wgrad_tc_kernel", "stem_wgrad_tc_kernel")
 
 
 def _need(cond: bool, what: str) -> None:
@@ -254,16 +256,6 @@ def _randn(rng, shape, scale=1.0, dtype=None, device="cuda"):
     return t.to(dtype) if dtype is not None else t
 
 
-def bound(moved: float, fp32_flops: float = 0.0, tensor_flops: float = 0.0):
-    """(least ms, what bounds it): the largest of the bytes moved over the
-    HBM rate and the operations over their type's peak (FP32 outside the
-    tensor cores; bf16 products on the tensor cores). The two pipes run at
-    once, so operations of both types cost the longer of their times."""
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(fp32_flops / FP32_FLOP_PER_S, tensor_flops / BF16_TENSOR_FLOP_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def tensor_core_sass(lib_path) -> dict:
     """HMMA / HGMMA instructions of each tensor-core kernel instantiation in
     the built library (``cuobjdump -sass``); raises where one has none."""
@@ -288,10 +280,6 @@ def tensor_core_sass(lib_path) -> dict:
         _need(bool(found) and all(v > 0 for v in found.values()),
               f"{kernel}: no tensor-core instructions in the SASS ({found})")
     return counts
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _record(results, name, source, replaces, err, err_abs, tol, unit, ms,
@@ -1221,92 +1209,67 @@ def check_train_kernels(results: list) -> None:
     from skoots_tpu_torch.kernels.lnhead import ln_head, xla_ln_head
     from skoots_tpu_torch.kernels.mlp import mlp_block_tail, xla_tail
 
+    # the training path's cases draw from rng in the order of the checks
+    # below since they were first made (so their inputs stay), the added
+    # ones from extra
     rng = np.random.default_rng(SEED + 1)
+    extra = np.random.default_rng(SEED + 2)
     bf = torch.bfloat16
     cx, cy, cz = TRAIN_CROP
 
-    # 1. depthwise weight gradient: the stem (1 -> 32, channel stride 0)
-    #    and the three block widths at their levels; bound 1e-3 * max|plain|
-    #    (f32 sums of the same bf16 products in another order)
-    for (sx, sy, sz), cin, c in (((cx, cy, cz), 1, 32), ((cx, cy, cz), 32, 32),
-                                 ((cx // 2, cy // 2, cz // 2), 64, 64),
-                                 ((cx // 4, cy // 4, cz // 4), 128, 128)):
-        x = _randn(rng, (1, sx, sy, sz, cin), dtype=bf)
-        g = _randn(rng, (1, sx, sy, sz, c), 1e-3, dtype=bf)
+    # 1. depthwise weight gradient (tools/bench_train_kernels.py's cases):
+    #    the stem (1 -> 32, channel stride 0) and the three block widths at
+    #    their levels (bf16: the tensor-core kernels), a ragged batch of 2
+    #    (X, Y, Z no multiple of a tile) for the depthwise and the stem
+    #    kernels, and one f32 shape (the FP32 kernel); bound 1e-3 *
+    #    max|plain| (f32 sums of the same exact products in another order),
+    #    and the same result from run to run (fixed-order sums)
+    for name, x, g in wgrad_inputs(rng, extra):
+        cin, c = x.shape[-1], g.shape[-1]
         got = dwconv3d_wgrad(x, g, 7)
         ref = dwconv3d_wgrad_ref(x, g, 7)
         torch.cuda.synchronize()
+        _need(torch.equal(got, dwconv3d_wgrad(x, g, 7)),
+              f"dwconv3d_wgrad {name}: differs run to run")
         err_abs = float((got - ref).abs().max())
-        # library call: cuDNN's bf16 weight gradient on the channels-last
-        # views (grouped per channel; the stem's dense 1 -> 32)
+        # library call: cuDNN's weight gradient on the channels-last views
+        # (grouped per channel; the stem's dense 1 -> 32)
         xv, gv = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
         groups = 1 if cin == 1 else c
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            library = _time_ms(lambda: torch.nn.grad.conv3d_weight(
+                xv, (c, 1, 7, 7, 7), gv, padding=3, groups=groups))
         _record(results, "dwconv3d_wgrad", "skoots_tpu_torch/csrc/dwconv_wgrad.cu",
                 "skoots_tpu/kernels/dwconv.py:782", err_abs / float(ref.abs().max()),
-                err_abs, 1e-3, f"of max|plain| at {(sx, sy, sz)} {cin}->{c}",
+                err_abs, 1e-3, f"of max|plain| at {name} {tuple(x.shape[:4])} {cin}->{c} "
+                f"{'bf16' if x.dtype == bf else 'f32'}",
                 _time_ms(lambda: dwconv3d_wgrad(x, g, 7)),
                 _time_ms(lambda: dwconv3d_wgrad_ref(x, g, 7)),
-                bound(nbytes(x, g, got), fp32_flops=2.0 * 343 * g.numel()),
-                _time_ms(lambda: torch.nn.grad.conv3d_weight(
-                    xv, (c, 1, 7, 7, 7), gv, padding=3, groups=groups)))
+                wgrad_bound(x, g, got), library)
         del x, g, got, ref, xv, gv
 
-    # 2. skeleton bake over one crop, anisotropy (1, 1, 3): 8 box
-    #    instances, P points inside them; exact
-    shape = (cx, cy, cz)
-    masks = torch.zeros(shape, dtype=torch.int32)
-    boxes = []
-    for i in range(1, 9):
-        lo = rng.integers(0, np.asarray(shape) // 2)
-        hi = lo + rng.integers(4, np.asarray(shape) // 2)
-        masks[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = i
-        boxes.append((lo, hi))
-    masks = masks.cuda()
-    for p in (256, 4096):
-        ids = rng.integers(1, 9, p).astype(np.int32)
-        ids[-p // 16:] = 0  # padding
-        lo = np.stack([boxes[i - 1][0] for i in np.maximum(ids, 1)])
-        hi = np.stack([boxes[i - 1][1] for i in np.maximum(ids, 1)])
-        pts = (lo + rng.random((p, 3)) * (hi - lo)).astype(np.float32)
-        pts_t = torch.from_numpy(pts).cuda()
-        ids_t = torch.from_numpy(ids).cuda()
-        got = bake_skeleton_kernel(masks, pts_t, ids_t, (1.0, 1.0, 3.0))
-        ref = bake_skeleton_ref(masks, pts_t, ids_t, (1.0, 1.0, 3.0))
+    # 2. skeleton bake over one crop, anisotropy (1, 1, 3), exact: 8 box
+    #    instances with P = 256 and 4,096 points inside them; the sparse
+    #    loss's bake (every point of a sample as one instance against an
+    #    all-ones mask, closest_skeleton; P = the bench cfg's
+    #    MAX_SKELETON_POINTS, a quarter of it padding); equidistant
+    #    duplicates (the first minimal point decides); 40 ids in every tile
+    #    (more than the kernel lists: the full scan with the id compare)
+    for name, masks, pts, ids in bake_cases(rng, extra, (cx, cy, cz), SPARSE_BAKE_POINTS):
+        masks = masks.cuda()
+        pts_t, ids_t = torch.from_numpy(pts).cuda(), torch.from_numpy(ids).cuda()
+        got = bake_skeleton_kernel(masks, pts_t, ids_t, ANISO)
+        ref = bake_skeleton_ref(masks, pts_t, ids_t, ANISO)
         torch.cuda.synchronize()
         diff = int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
         err_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        # the work this data needs: 11 FP32 operations for every voxel and
-        # point of its own instance
-        per_id = torch.bincount(ids_t[ids_t > 0].long(), minlength=9)
-        pairs = float(torch.where(masks > 0, per_id[masks.long()], 0).sum())
         _record(results, "bake_skeleton", "skoots_tpu_torch/csrc/bake.cu",
                 "skoots_tpu/kernels/bake.py:112", float(diff), err_abs, 0.0,
-                f"values differing at V={masks.numel()} P={p}",
-                _time_ms(lambda: bake_skeleton_kernel(masks, pts_t, ids_t, (1.0, 1.0, 3.0))),
-                _time_ms(lambda: bake_skeleton_ref(masks, pts_t, ids_t, (1.0, 1.0, 3.0))),
-                bound(nbytes(masks, pts_t, ids_t, *got), fp32_flops=11.0 * pairs))
-        del got, ref
-
-    # 2b. the sparse loss's bake: every point of a sample as one instance
-    #    against an all-ones mask (closest_skeleton), P = the bench cfg's
-    #    MAX_SKELETON_POINTS with a quarter of it padding; exact
-    p = SPARSE_BAKE_POINTS
-    ones = torch.ones(shape, dtype=torch.int32, device="cuda")
-    ids_t = torch.from_numpy((np.arange(p) < p - p // 4).astype(np.int32)).cuda()
-    pts_t = torch.from_numpy((rng.random((p, 3)) * np.asarray(shape)).astype(np.float32)).cuda()
-    got = bake_skeleton_kernel(ones, pts_t, ids_t, (1.0, 1.0, 3.0))
-    ref = bake_skeleton_ref(ones, pts_t, ids_t, (1.0, 1.0, 3.0))
-    torch.cuda.synchronize()
-    diff = int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
-    err_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-    _record(results, "bake_skeleton", "skoots_tpu_torch/csrc/bake.cu",
-            "skoots_tpu/kernels/bake.py:112", float(diff), err_abs, 0.0,
-            f"values differing at the sparse loss's V={ones.numel()} P={p}, all fg",
-            _time_ms(lambda: bake_skeleton_kernel(ones, pts_t, ids_t, (1.0, 1.0, 3.0))),
-            _time_ms(lambda: bake_skeleton_ref(ones, pts_t, ids_t, (1.0, 1.0, 3.0))),
-            bound(nbytes(ones, pts_t, ids_t, *got),
-                  fp32_flops=11.0 * ones.numel() * float(ids_t.sum())))
-    del got, ref, ones
+                f"values differing at {name} V={masks.numel()}",
+                _time_ms(lambda: bake_skeleton_kernel(masks, pts_t, ids_t, ANISO)),
+                _time_ms(lambda: bake_skeleton_ref(masks, pts_t, ids_t, ANISO)),
+                bake_bound(masks, pts_t, ids_t, *got))
+        del got, ref, masks
 
     # 3. the depthwise conv's bf16 input gradient (the forward kernel on the
     #    cotangent with tap-flipped weights) against its plain composition,

@@ -123,6 +123,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(p)));
 }
 
+// Two 8x8 b16 matrices, transposed: lanes 0-7 give the row addresses of
+// matrix 0, lanes 8-15 of matrix 1 (lanes 16-31 are not read).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // d += a * b on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col),
 // D 16x8 f32. Fragments (g = lane / 4, q = lane % 4): a0 (row g, k 2q, 2q+1),
 // a1 (row g+8, same k), a2 (row g, k 2q+8, 2q+9), a3 (row g+8, k 2q+8, 2q+9);

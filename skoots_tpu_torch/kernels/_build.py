@@ -52,11 +52,12 @@ _SIGNATURES = {
     # (counts, not errors)
     "skoots_propagate_qmax": (),
     "skoots_propagate_tile_count": (_I, _I, _I),
-    # B, X, Y, Z -> rows of the partial-sum buffer (a count, not an error)
-    "skoots_dwconv3d_wgrad_tiles": (_I, _I, _I, _I),
-    # dtype, x, g, partial, out, B, X, Y, Z, C, k, x_vstride, x_cstride, stream
+    # dtype, x, g, B, X, Y, Z, C, k, x_vstride, x_cstride, plan out (int32 [8])
+    "skoots_dwconv3d_wgrad_plan": (_I, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P),
+    # dtype, x, g, partial, out, B, X, Y, Z, C, k, x_vstride, x_cstride,
+    # plan, stream
     "skoots_dwconv3d_wgrad": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
-                              _L, _P),
+                              _L, _P, _P),
     # mask, points, ids, P, X, Y, Z, wx, wy, wz, baked, dist, stream
     "skoots_bake": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P),
     # dtype, x, out, B, X, Y, Z, C, planes a thread marches over, stream

@@ -11,9 +11,14 @@ at f32 an FP32-FMA kernel that reuses each staged column for the k dz taps
 (see the source header).
 
 Weight gradient: replaces ``dwconv3d_wgrad_pallas_v2`` (the TPU default)
-and ``dwconv3d_wgrad_pallas`` (same function). The Hopper kernel is
-``csrc/dwconv_wgrad.cu``: per-block partial sums, then a fixed-order sum
-over blocks, so the result does not change from run to run.
+and ``dwconv3d_wgrad_pallas`` (same function). The Hopper kernels are in
+``csrc/dwconv_wgrad.cu``: at bf16 the transpose of the forward's banded
+product on the tensor cores (each (dx, dy) a 16x8 product of input window
+and cotangent whose diagonals are the k dz taps;
+``tests/test_torch_wgrad_banded.py`` states it), the stem an implicit GEMM
+with a Hankel input window; at f32 FP32 FMAs. Every block writes one row of
+partial sums and a second launch adds the rows in a fixed order, so the
+result does not change from run to run.
 
 :func:`dwconv3d` is a ``torch.autograd.Function`` with the backward of the
 JAX ``custom_vjp`` (``dwconv.py:182-221``): the input gradient is the
@@ -30,6 +35,8 @@ by one ulp per layer; at f32 they agree.)
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -111,19 +118,31 @@ def dwconv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     x = x.contiguous()
     g = g.contiguous()
     lib = _build.library()
-    tiles = lib.skoots_dwconv3d_wgrad_tiles(bsz, xs, ys, zs)
-    partial = torch.empty((tiles, k * k * k, c), dtype=torch.float32, device=x.device)
+    dtype, cstride = _build.DTYPE_CODES[x.dtype], 1 if cin == c else 0
+    # the launch plan depends on these alone (and the card): made once each
+    key = (x.device.index, dtype, k, bsz, xs, ys, zs, c, cstride,
+           x.data_ptr() % 16 == 0, g.data_ptr() % 16 == 0)
+    plan = _WGRAD_PLANS.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * 8)()
+        _build.check(lib.skoots_dwconv3d_wgrad_plan(dtype, x.data_ptr(), g.data_ptr(), bsz,
+                                                     xs, ys, zs, c, k, cin, cstride, plan),
+                     "dwconv3d_wgrad")
+        _WGRAD_PLANS[key] = plan
+    partial = torch.empty((plan[1], k * k * k, c), dtype=torch.float32, device=x.device)
     out = torch.empty((k, k, k, c), dtype=torch.float32, device=x.device)
     code = lib.skoots_dwconv3d_wgrad(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), g.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), bsz, xs, ys, zs, c, k, cin,
-        1 if cin == c else 0, _build.stream_ptr(x))
+        dtype, x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(), bsz, xs,
+        ys, zs, c, k, cin, cstride, plan, _build.stream_ptr(x))
     _build.check(code, "dwconv3d_wgrad")
     dwconv3d_wgrad.launches += 1
     return out
 
 
 dwconv3d_wgrad.launches = 0
+# launch plans (int32 [8], csrc/dwconv_wgrad.cu::Plan; plan[1] the partial
+# rows) by the operands they depend on
+_WGRAD_PLANS: dict = {}
 
 
 class _DWConv3D(torch.autograd.Function):

@@ -27,6 +27,7 @@ from skoots_tpu_torch.ops.embed2prob import baked_embed_to_prob
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
 from skoots_tpu_torch.train.losses import cfg_loss
 from skoots_tpu_torch.train.sigma import Sigma, init_sigma
+from skoots_tpu_torch.train.viz import write_progress
 
 log = logging.getLogger(__name__)
 
@@ -164,6 +165,37 @@ def make_eval_step(model, sigma: Sigma, cfg: dict):
     return eval_step
 
 
+@torch.no_grad()
+def panel_forward(model, batch, sigma_value, vector_scale):
+    """JAX's ``_panel_forward``: the model in eval mode on ``batch["image"]``,
+    its output split as :func:`_loss_terms` splits it, and the embedding's
+    probability against ``batch["baked"]`` at ``sigma_value``. Returns
+    (vectors, skeleton, probability), channels last."""
+    was_training = model.training
+    model.eval()
+    try:
+        out = model(batch["image"])
+    finally:
+        model.train(was_training)
+    vec, skel = out[..., 0:3], out[..., 3:4]
+    prob = baked_embed_to_prob(vector_to_embedding(vector_scale, vec), batch["baked"],
+                               sigma_value)
+    return vec, skel, prob
+
+
+def write_panels(writer, model, batch, sigma_value, vector_scale, epoch: int) -> None:
+    """The epoch's ``"Train"`` image panels (JAX's dense loop): one eval
+    forward on ``batch``, then :func:`~skoots_tpu_torch.train.viz.write_progress`."""
+    vec, skel, prob = panel_forward(model, batch, sigma_value, vector_scale)
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    write_progress(writer, "Train", epoch, images=host(batch["image"]),
+                   masks=host(batch["masks"]), vector=host(vec), embed_prob=host(prob),
+                   predicted_skeleton=host(skel), gt_skeleton=host(batch["skele_masks"]))
+
+
 @dataclass
 class TrainState:
     model: torch.nn.Module
@@ -187,8 +219,12 @@ def train(
     pretrained checkpoint) on ``device`` for ``TRAIN.NUM_EPOCHS`` epochs.
     ``data_iter(epoch)`` yields device batches (:func:`make_train_step`).
     Saves a ``.skoots`` checkpoint every ``SAVE_INTERVAL`` epochs and after
-    the last. ``AUTOGRAD_PROFILE`` records a ``torch.profiler`` trace to
-    ``SAVE_PATH/torch_trace``; ``AUTOGRAD_DETECT_ANOMALY`` turns on
+    the last. With a ``writer`` (TensorBoard's ``SummaryWriter`` API), each
+    epoch logs the mean losses and lr as scalars and one ``"Train"`` image
+    of panels from an eval forward on the epoch's last batch
+    (:func:`write_panels`), as the JAX loop does. ``AUTOGRAD_PROFILE``
+    records a ``torch.profiler`` trace to ``SAVE_PATH/torch_trace``;
+    ``AUTOGRAD_DETECT_ANOMALY`` turns on
     ``torch.autograd.set_detect_anomaly``."""
     t = cfg["TRAIN"]
     device = torch.device(device)
@@ -206,6 +242,7 @@ def train(
     sigma = init_sigma(cfg)
     train_step = make_train_step(model, optimizer, schedule, sigma, cfg)
     eval_step = make_eval_step(model, sigma, cfg) if val_iter else None
+    vector_scale = tuple(float(v) for v in cfg["SKOOTS"]["VECTOR_SCALING"])
 
     os.makedirs(t["SAVE_PATH"], exist_ok=True)
     save_name = os.path.join(t["SAVE_PATH"], time.strftime("%b%d_%H-%M-%S") + ".skoots")
@@ -224,7 +261,9 @@ def train(
         for e in range(t["NUM_EPOCHS"]):
             t0 = time.time()
             agg: Dict[str, list] = {}
+            last_batch = None
             for batch in data_iter(e):
+                last_batch = batch
                 metrics = train_step(batch, e)
                 steps += 1
                 for k, v in metrics.items():
@@ -234,6 +273,8 @@ def train(
             if writer is not None:
                 for k, v in means.items():
                     writer.add_scalar(f"Loss/{k}" if k != "lr" else "lr", v, e)
+                if last_batch is not None:
+                    write_panels(writer, model, last_batch, sigma(e), vector_scale, e)
 
             if eval_step is not None and e % t["VALIDATE_EPOCH_SKIP"] == 0:
                 vagg: Dict[str, list] = {}

@@ -40,7 +40,8 @@ EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample"
             "skoots_tpu_torch.experimental.eval", "skoots_tpu_torch.experimental.modifiers",
             "skoots_tpu_torch.experimental.sparse_engine",
             "skoots_tpu_torch.experimental.sparse_loss",
-            "skoots_tpu_torch.train.generate_skeletons", "skoots_tpu_torch.utils.lee_thin"}
+            "skoots_tpu_torch.train.generate_skeletons", "skoots_tpu_torch.utils.lee_thin",
+            "skoots_tpu_torch.train.viz", "skoots_tpu_torch.tools.bench_train_kernels"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():

@@ -18,6 +18,7 @@ from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel, bake_skeleton_re
 from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad, dwconv3d_wgrad_ref
 from skoots_tpu_torch.models import init_model
 from skoots_tpu_torch.ops.skeleton import pack_skeletons
+from skoots_tpu_torch.tools.bench_train_kernels import WGRAD_CASES, bake_cases
 
 T = torch.from_numpy
 
@@ -54,6 +55,35 @@ def test_cuda_wgrad_and_bake_match_plain_versions(cuda_device):
         got = bake_skeleton_kernel(masks, p.points, p.ids, aniso)
         ref = bake_skeleton_ref(masks, p.points, p.ids, aniso)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,cin,c,dt", WGRAD_CASES, ids=[c[0] for c in WGRAD_CASES])
+def test_cuda_wgrad_kernels_at_the_training_shapes(cuda_device, name, shape, cin, c, dt):
+    """The tensor-core kernels (bf16: the stem's Hankel GEMM, the depthwise
+    transposed band) and the FP32 one (f32) at the training levels and a
+    ragged batch of 2: within 1e-3 * max|plain|, the same from run to run."""
+    rng = np.random.default_rng(5)
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    x = T(rng.standard_normal((*shape, cin)).astype(np.float32)).to(cuda_device, dtype)
+    g = T((rng.standard_normal((*shape, c)) * 1e-3).astype(np.float32)).to(cuda_device, dtype)
+    got = dwconv3d_wgrad(x, g, 7)
+    ref = dwconv3d_wgrad_ref(x, g, 7)
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    assert torch.equal(got, dwconv3d_wgrad(x, g, 7))
+
+
+@pytest.mark.cuda
+def test_cuda_bake_lists_match_the_plain_version(cuda_device):
+    """The bake's cases at the training crop (8 boxes with P = 256 and
+    4,096, the sparse loss's all-foreground case, equidistant duplicates,
+    40 ids a tile for the over-cap scan): bit for bit."""
+    for name, masks, pts, ids in bake_cases(np.random.default_rng(0), np.random.default_rng(1)):
+        m = masks.to(cuda_device)
+        p, i = T(pts).to(cuda_device), T(ids).to(cuda_device)
+        got = bake_skeleton_kernel(m, p, i, (1.0, 1.0, 3.0))
+        ref = bake_skeleton_ref(m, p, i, (1.0, 1.0, 3.0))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), name
 
 
 @pytest.mark.cuda
