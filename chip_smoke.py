@@ -86,7 +86,22 @@ them. In order:
     calibrator), every loss finite, the ``*_sparse.skoots`` checkpoint with
     a calibrated threshold, reloaded; then ``run_inference`` with it on a
     128x128x64 block of the 256^3 phantom, printing which semantic gate won;
-15. prints one JSON line of per-kernel results (each with its least time on
+15. this slice's phases (Pillow is blocked for the whole run, from the
+    start): after the host engine, the 256^3 phantom written as a ``.tif``
+    by the port's own codec and read back (MB/s of both), then ``skoots-torch
+    --image phantom.tif`` (``cli.main``), launch counts read, its ``.tif``
+    mask equal to the ``.npy`` run's; after the training path, 8 steps each
+    of UNeXT with DropPath 0.1 and silu, with layer scale 0, and of
+    UNet3D (``bism_unet``, 32-64-128-64-32, depth 2) on one batch, the loss
+    falling and the launches exact (no block tail in the plain-tail
+    variants; no dwconv, wgrad or LN head in UNet3D), one f32 UNet3D step
+    card vs CPU; a resume with ``LOAD_PRETRAINED_OPTIMIZER`` (moments bit
+    for bit, the resumed step within 1e-2 * lr of the uninterrupted one);
+    UNet3D through ``make_chunked_pipeline`` on the 512^3 phantom (2
+    upsamples a tile, no dwconv), its probabilities and instances card vs
+    CPU on the 128x128x64 block; the load + FMA variants' bounds come from
+    their SASS (FFMA against shared-memory wavefronts a column);
+16. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -575,9 +590,25 @@ def check_microbenchmarks(results: list) -> None:
         dyn, ch = r["variant"].startswith("dynamic"), 8 if "chains" in r["variant"] else 1
         lf_plain.append(once_ms(lambda: loadfma_ref(buf.expand(r["reps"], *SHAPE), w,
                                                     dyn, ch)))
-    for name, replaces, rows, plain in (
-            ("fma_chain", "tools/bench_vpu_pallas.py:33", fill, fma_plain),
-            ("loadfma", "tools/bench_loadfma.py:88", big, lf_plain)):
+    # the load + FMA variants' bounds from what their SASS issues a column
+    from skoots_tpu_torch.kernels import _build
+
+    sass = bench_loadfma.sass_counts(_build.library_path())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = bench_loadfma.sm_clock_hz()
+    lf_bounds = []
+    for r in big:
+        least, by, f_ms, s_ms = bench_loadfma.variant_bound(sass[r["variant"]], r["reps"],
+                                                            sms, clock)
+        lf_bounds.append((least, by))
+        print(f"loadfma {r['variant']}: {r['ms']:.4f} ms, SASS a column "
+              f"{json.dumps(sass[r['variant']])}, bound {least:.4f} ms ({by}: FFMA "
+              f"{f_ms:.4f}, shared memory {s_ms:.4f}; {sms} SMs at {clock / 1e6:.0f} MHz), "
+              f"{100 * least / r['ms']:.1f}% of it", flush=True)
+    for name, replaces, rows, plain, bounds in (
+            ("fma_chain", "tools/bench_vpu_pallas.py:33", fill, fma_plain,
+             [bound(0, fp32_flops=r["flops"]) for r in fill]),
+            ("loadfma", "tools/bench_loadfma.py:88", big, lf_plain, lf_bounds)):
         _need(launches[name] > 0 and rows, f"{name} did not run")
         print(f"kernel {name}: {sum(r['ms'] for r in rows):.4f} ms on the card-filling "
               f"runs, plain {sum(plain):.3f} ms", flush=True)
@@ -585,8 +616,9 @@ def check_microbenchmarks(results: list) -> None:
             "name": name, "route": "cuda", "source": "skoots_tpu_torch/csrc/microbench.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": 0.0,
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(plain),
-            "bound_ms": sum(bound(0, fp32_flops=r["flops"])[0] for r in rows),
-            "bound_by": "operations", "library_ms": None, "_largest": 0.0})
+            "bound_ms": sum(b[0] for b in bounds),
+            "bound_by": max(bounds)[1] if max(bounds)[1] != "shared memory" else "bytes",
+            "library_ms": None, "_largest": 0.0})
 
 
 def _iou_match(ref, other):
@@ -626,7 +658,8 @@ def run_host_engine(results: list):
     on a seeded 256^3 tube phantom (uint8 ``.npy``) with the bench
     checkpoint, then its ``--use-cached`` and out-of-core reruns, then a
     128x128x32 block on the card and on the CPU. Returns the phantom, the
-    default run's instance count and the tubes placed."""
+    default run's instance count, the tubes placed and the default run's
+    mask."""
     import shutil
 
     import torch
@@ -687,6 +720,7 @@ def run_host_engine(results: list):
         _need(counts[name] == k * forwards,
               f"{name}: {counts[name]} launches, expected {k} x {forwards} forwards")
     n = n_default = len(np.unique(mask)) - 1
+    default_mask = mask
     _need(0.8 * n_expected <= n <= n_expected + 4,
           f"n_instances {n} outside [0.8*{n_expected}, {n_expected}+4]")
     for r in results:
@@ -740,7 +774,7 @@ def run_host_engine(results: list):
           "the host engine's instances on the card differ from the CPU's")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return vol, n_default, n_expected
+    return vol, n_default, n_expected, default_mask
 
 
 def run_slice(results: list):
@@ -825,11 +859,12 @@ def run_slice(results: list):
     return ckpt, model, volume, inst.cpu(), reserved, run
 
 
-def check_against_cpu(ckpt, model, volume) -> None:
+def check_against_cpu(ckpt, model, volume, min_instances: int = 1) -> None:
     """The same pipeline on a 128x128x64 block of the phantom that three
     tubes cross, on the card and with every kernel's plain version on the
     CPU (which the CPU tests hold against the JAX package): finite model
-    output, the same instance count, every instance at IoU >= 0.95."""
+    output, the same instance count (at least ``min_instances``), every
+    instance at IoU >= 0.95."""
     import torch
 
     from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
@@ -862,7 +897,7 @@ def check_against_cpu(ckpt, model, volume) -> None:
     n_card = len(np.unique(card)) - 1
     print(f"card vs cpu on {tuple(block.shape)}: {n_card} vs {len(ids)} instances, "
           f"min IoU {min(ious, default=0.0):.4f}", flush=True)
-    _need(len(ids) >= 1 and n_card == len(ids) and min(ious) >= 0.95,
+    _need(len(ids) >= min_instances and n_card == len(ids) and min(ious, default=1.0) >= 0.95,
           "the card's instances differ from the plain versions' on the CPU")
 
 
@@ -1331,12 +1366,13 @@ def _bench_train_cfg() -> dict:
     return cfg_from_dict(load_checkpoint(os.path.join(ROOT, "runs", "bench_ckpt.skoots"))["cfg"])
 
 
-def check_grads_against_cpu() -> None:
+def check_grads_against_cpu(model_update=None, tag: str = "bism_unext") -> None:
     """One f32 train step of the bench model at full width (dims
-    32-64-128, depth 2, 7^3) on one seeded 32x32x16 batch, on the card and
-    on the CPU (every kernel's plain version) from the same initial
-    weights: loss within 1e-4 relative, every gradient present, finite and
-    within 1e-3 * max|g_cpu|. TF32 is off for the comparison."""
+    32-64-128, depth 2, 7^3; ``model_update`` changes ``MODEL``, e.g. to
+    UNet3D) on one seeded 32x32x16 batch, on the card and on the CPU (every
+    kernel's plain version) from the same initial weights: loss within 1e-4
+    relative, every gradient present, finite and within 1e-3 * max|g_cpu|.
+    TF32 is off for the comparison."""
     import torch
 
     from skoots_tpu_torch.models import init_model
@@ -1346,6 +1382,7 @@ def check_grads_against_cpu() -> None:
     from skoots_tpu_torch.utils.synthetic import make_tubes
 
     cfg = _bench_train_cfg()
+    cfg["MODEL"].update(model_update or {})
     cfg["MODEL"]["DTYPE"] = "float32"
     shape = (32, 32, 16)
     img, labels, skels = make_tubes(shape=shape, n_tubes=3, radius=3, seed=3)
@@ -1380,7 +1417,7 @@ def check_grads_against_cpu() -> None:
         rel = float((gd - gc).abs().max()) / max(float(gc.abs().max()), 1e-30)
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"grads card vs cpu (f32, {shape}): loss {l_card:.8g} vs {l_cpu:.8g} "
+    print(f"grads card vs cpu ({tag}, f32, {shape}): loss {l_card:.8g} vs {l_cpu:.8g} "
           f"(rel {abs(l_card - l_cpu) / abs(l_cpu):.3g}, bound 1e-4); "
           f"{len(g_cpu)} gradients, worst {worst:.3g} of max|g_cpu| at {worst_name} "
           f"(bound 1e-3)", flush=True)
@@ -1391,8 +1428,7 @@ def check_grads_against_cpu() -> None:
 def run_train_slice(results: list) -> list:
     """The training path at the bench checkpoint's training cfg (bf16, crop
     96x96x32, batch 1) on two seeded 256x256x32 tube volumes with 8 tubes
-    each, held in memory as ``VolumeRecord`` objects. Returns the volumes'
-    (image, labels)."""
+    each, held in memory as ``VolumeRecord`` objects. Returns the records."""
     import torch
 
     from skoots_tpu_torch.checkpoint import load_checkpoint
@@ -1517,7 +1553,326 @@ def run_train_slice(results: list) -> list:
           f"{ckpt['extra']['epoch']}, reloaded forward "
           f"{'equal' if same else 'DIFFERENT'}", flush=True)
     _need(same, "the reloaded checkpoint's forward differs from the trained model's")
-    return [(r.image, r.masks) for r in records]
+    return records
+
+
+def block_pillow() -> None:
+    """Pillow is blocked for the whole run (any ``import PIL`` raises): the
+    port reads and writes TIFF with its own codec (``utils/tiff.py``)."""
+    import importlib.util
+
+    installed = importlib.util.find_spec("PIL") is not None
+    sys.modules["PIL"] = None
+    print(f"Pillow blocked for the whole run (installed on this machine: {installed})",
+          flush=True)
+
+
+def run_tif(results: list, vol, npy_mask) -> None:
+    """The 256^3 host phantom written as a ``.tif`` by the port's writer
+    (one Deflate page per Z) and read back (MB/s of both), then ``skoots-torch
+    --image phantom.tif`` (``cli.main``) with the bench checkpoint, launch
+    counts set to 0 just before and read just after: its ``.tif`` mask,
+    read back, equals the ``.npy`` run's."""
+    import torch
+
+    from skoots_tpu_torch import cli
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.utils.io import imread, imsave
+
+    work = os.path.join(ROOT, "build", "tif_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tif = os.path.join(work, "phantom.tif")
+    mb = vol.nbytes / 1e6
+    t0 = time.time()
+    imsave(tif, vol)
+    t_write = time.time() - t0
+    t0 = time.time()
+    back = imread(tif)
+    t_read = time.time() - t0
+    print(f"tif: {vol.shape} {vol.dtype} ({mb:.1f} MB, {os.path.getsize(tif)} B on disk) "
+          f"written {mb / t_write:.1f} MB/s, read {mb / t_read:.1f} MB/s, "
+          f"{'equal' if np.array_equal(back, vol) else 'DIFFERENT'}", flush=True)
+    _need(back.dtype == vol.dtype and np.array_equal(back, vol), "the tif read back differs")
+
+    ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    kernels = _launch_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
+    try:
+        t0 = time.time()
+        rc = cli.main(["--image", tif, "--pretrained-checkpoint", ckpt, "--log", "1"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        prop_mod.propagate_ref = saved
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    stats = json.loads(json.dumps(engine.last_stats))
+    t0 = time.time()
+    mask = imread(os.path.join(work, "phantom_instance_mask.tif"))
+    t_mask = time.time() - t0
+    n = len(np.unique(mask)) - 1
+    same = mask.shape == npy_mask.shape and np.array_equal(mask, npy_mask)
+    print(f"tif: skoots-torch --image phantom.tif: rc {rc}, {n} instances in {wall:.3f} s, "
+          f"engine {stats['engine']}, mask read {mask.nbytes / 1e6 / t_mask:.1f} MB/s "
+          f"({mask.dtype}), {'equal to' if same else 'DIFFERENT from'} the .npy run's",
+          flush=True)
+    print(f"tif launches: {json.dumps(counts)}", flush=True)
+    _need(rc == 0 and same, "the tif run's mask differs from the .npy run's")
+    forwards = 4 + stats["phase1"]["tiles"]
+    for name, k in FORWARD_KERNELS_PER_TILE.items():
+        _need(counts[name] == k * forwards,
+              f"tif {name}: {counts[name]} launches, expected {k} x {forwards}")
+    _need(counts["propagate"] == stats["phase2"]["cc_rounds"] > 0, "tif: propagate")
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# the new cfg values of the training cell: (tag, MODEL update)
+TRAIN_VARIANTS = (("droppath_silu", {"DROP_PATH_RATE": 0.1, "ACTIVATION": "silu"}),
+                  ("gamma0", {"LAYER_SCALE_INIT_VALUE": 0.0}),
+                  ("bism_unet", {"ARCHITECTURE": "bism_unet"}))
+
+
+def _train_cell(records):
+    """(cfg, augment, host batches of one epoch, mean, std) of the training
+    cell on ``records``."""
+    from skoots_tpu_torch.train.data import SkootsDataset, batch_iterator
+    from skoots_tpu_torch.train.transforms import make_batch_augment
+
+    cfg = _bench_train_cfg()
+    dataset = SkootsDataset(records, cfg, sample_per_image=8)
+    mean, std = dataset.mean_std(with_invert=cfg["AUGMENTATION"]["INVERT_RATE"] > 0)
+    augment = make_batch_augment(cfg, mean, std, dataset.intensity_ceiling(), device="cuda")
+    host = batch_iterator(dataset, cfg["TRAIN"]["TRAIN_BATCH_SIZE"], 8, cfg["TRAIN"]["SEED"])
+    return cfg, augment, list(host(0)), mean, std
+
+
+def run_train_variants(results: list, records) -> str:
+    """8 steps each of UNeXT with DropPath 0.1 and silu, with layer scale 0,
+    and of ``bism_unet`` (UNet3D, 32-64-128-64-32, depth 2, 3^3) at the
+    training cell, on one augmented batch, one more augmentation a step
+    (the bake) inside the counted window: the loss (evaluated without
+    DropPath) falls, and the launches are what the model implies (no block
+    tail on the plain-tail variants; no dwconv, wgrad or LN head in UNet3D).
+    Then one f32 UNet3D step card vs CPU. Returns UNet3D's checkpoint."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import save_checkpoint
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+    from skoots_tpu_torch.kernels.upsample import upsample2x
+    from skoots_tpu_torch.models import init_model
+    from skoots_tpu_torch.train.engine import cfg_optimizer, flax_opt_state, make_train_step
+    from skoots_tpu_torch.train.sigma import init_sigma
+
+    base, augment, host_batches, mean, std = _train_cell(records)
+    kernels = {"dwconv3d": dwconv3d, "dwconv3d_wgrad": dwconv3d_wgrad,
+               "mlp_block_tail": mlp_block_tail, "ln_head": ln_head,
+               "upsample2x": upsample2x, "bake_skeleton": bake_skeleton_kernel}
+    bsz = base["TRAIN"]["TRAIN_BATCH_SIZE"]
+    work = os.path.join(ROOT, "build", "variant_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    unet_ckpt = None
+    for tag, update in TRAIN_VARIANTS:
+        cfg = _bench_train_cfg()
+        cfg["MODEL"].update(update)
+        seed = cfg["TRAIN"]["SEED"]
+        model = init_model(cfg, seed, device="cuda").train()
+        opt, sched = cfg_optimizer(cfg, model.parameters())
+        step = make_train_step(model, opt, sched, init_sigma(cfg), cfg)
+        gen = torch.Generator().manual_seed(seed)
+        fixed = augment(host_batches[0], gen)
+        with torch.no_grad():
+            first = float(step.loss_fn(fixed, 0)[0])
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        times = []
+        for i in range(8):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            augment(host_batches[i], gen)
+            a.record()
+            step(fixed, 0)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        with torch.no_grad():
+            final = float(step.loss_fn(fixed, 0)[0])
+        unet = update.get("ARCHITECTURE") == "bism_unet"
+        per_step = {"dwconv3d": 0 if unet else 21, "dwconv3d_wgrad": 0 if unet else 11,
+                    "mlp_block_tail": 0, "ln_head": 0 if unet else 1, "upsample2x": 2,
+                    "bake_skeleton": bsz}
+        print(f"train variant {tag}: loss {first:.6f} -> {final:.6f} over 8 steps, step "
+              f"{float(np.median(times[1:])):.3f} ms (warm median of 7), launches "
+              f"{json.dumps(counts)}", flush=True)
+        _need(np.isfinite(final) and final < first, f"{tag}: the loss did not fall")
+        for name, c in counts.items():
+            _need(c == 8 * per_step[name],
+                  f"{tag} {name}: {c} launches, expected {8 * per_step[name]}")
+        for r in results:
+            r["launches"] += counts.get(r["name"], 0)
+        if unet:
+            unet_ckpt = os.path.join(work, "unet.skoots")
+            save_checkpoint(unet_ckpt, cfg, model.state_dict(),
+                            flax_opt_state(opt, model, cfg, 8), dataset_mean=mean,
+                            dataset_std=std)
+        del model, opt, step, fixed
+        torch.cuda.empty_cache()
+    check_grads_against_cpu({"ARCHITECTURE": "bism_unet"}, "bism_unet")
+    return unet_ckpt
+
+
+def run_resume(records) -> None:
+    """Train the training cell's model 4 steps on one batch, save it with its
+    optimizer state, take a 5th step; then ``train()`` from that checkpoint
+    with ``LOAD_PRETRAINED_OPTIMIZER`` for the same 5th step. The restored
+    moments and step count equal the saved ones bit for bit, and the
+    resumed step's parameters equal the uninterrupted run's within
+    1e-2 * lr."""
+    import copy
+
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from skoots_tpu_torch.models import init_model, model_from_checkpoint
+    from skoots_tpu_torch.train.engine import (cfg_optimizer, flax_opt_state,
+                                               load_flax_opt_state, make_train_step, train)
+    from skoots_tpu_torch.train.sigma import init_sigma
+
+    cfg, augment, host_batches, mean, std = _train_cell(records)
+    t = cfg["TRAIN"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same sums in both runs
+    work = os.path.join(ROOT, "build", "resume_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model = init_model(cfg, t["SEED"], device="cuda").train()
+    opt, sched = cfg_optimizer(cfg, model.parameters())
+    step = make_train_step(model, opt, sched, init_sigma(cfg), cfg)
+    fixed = augment(host_batches[0], torch.Generator().manual_seed(t["SEED"]))
+    for _ in range(4):
+        step(fixed, 0)
+    path = os.path.join(work, "four.skoots")
+    save_checkpoint(path, cfg, model.state_dict(), flax_opt_state(opt, model, cfg, 4),
+                    dataset_mean=mean, dataset_std=std)
+    saved = {n: {k: v.clone() for k, v in opt.state[p].items()}
+             for n, p in model.named_parameters()}
+    step(fixed, 0)
+    fifth = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    ck = load_checkpoint(path)
+    fresh = model_from_checkpoint(ck, device="cuda").train()
+    fresh_opt, _ = cfg_optimizer(cfg, fresh.parameters())
+    count = load_flax_opt_state(fresh_opt, fresh, cfg, ck["opt_state"])
+    differ = [f"{n}.{k}" for n, p in fresh.named_parameters() for k, v in saved[n].items()
+              if not torch.equal(fresh_opt.state[p][k].to(v.device), v)]
+    print(f"resume: {len(saved)} parameters' moments and step restored from "
+          f"{os.path.basename(path)} (count {count}), {len(differ)} differ bit for bit",
+          flush=True)
+    _need(count == 4 and not differ, f"restored optimizer state differs at {differ[:4]}")
+
+    rcfg = copy.deepcopy(cfg)
+    rcfg["TRAIN"].update(PRETRAINED_MODEL_PATH=[path], LOAD_PRETRAINED_OPTIMIZER=True,
+                         NUM_EPOCHS=1, SAVE_PATH=os.path.join(work, "resumed"))
+    state = train(rcfg, lambda e: iter([fixed]), "cuda", dataset_mean=mean, dataset_std=std)
+    worst = max(float((p.detach() - fifth[n]).abs().max())
+                for n, p in state.model.named_parameters())
+    lr = sched(0)
+    resumed = load_checkpoint(state.save_name)["opt_state"]
+    print(f"resume: train() with LOAD_PRETRAINED_OPTIMIZER took the 5th step: max |p - "
+          f"p_uninterrupted| {worst:.3g} (bound 1e-2 * lr = {1e-2 * lr:.3g}); its checkpoint "
+          f"holds count {int(resumed['count'])}", flush=True)
+    _need(worst <= 1e-2 * lr, "the resumed step differs from the uninterrupted one")
+    _need(int(resumed["count"]) == 5, "the resumed checkpoint's count is not 5")
+    torch.backends.cudnn.deterministic = deterministic
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def run_unet_inference(results: list, ckpt_path: str) -> None:
+    """UNet3D (the 8-step ``bism_unet`` checkpoint) through
+    ``make_chunked_pipeline`` on the 512^3 bench phantom with ``bench.py``'s
+    knobs, launch counts set to 0 just before and read just after: 2
+    upsamples a tile, no dwconv, block tail or LN head, propagate per CC
+    round; the phase split; one forward tile's reserved memory
+    (``_forward_tile_bytes``); then card against CPU on the 128x128x64
+    block: the model's probabilities, and the pipeline's instances (the
+    barely trained model's instances are not held to the phantom's)."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.models import model_from_checkpoint
+    from skoots_tpu_torch.utils.synthetic import render_tubes, tube_segments
+
+    dev = torch.device("cuda")
+    ckpt = load_checkpoint(ckpt_path)
+    model = model_from_checkpoint(ckpt, device=dev)
+    mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
+    p0, p1, _ = tube_segments(VOLUME, 48, radius=5.0, seed=7)
+    volume = render_tubes(VOLUME, p0, p1, radius=5.0, device=dev)
+    tile_bytes = engine._forward_tile_bytes(model, [TILE], 0.8, 0.8, 1, 2, dev)
+    run = make_chunked_pipeline(
+        model, VOLUME, crop=TILE, overlap=(0, 0, 0), assign_crop=(256, 256, 64),
+        vector_scale=tuple(ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"]),
+        embed_iterations=10, embed_exit_fraction=1e-3, embed_compact_div=16,
+        cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0, device=dev)
+    kernels = _launch_counters()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
+    try:
+        t0 = time.time()
+        inst = run(volume, mean, std)
+        torch.cuda.synchronize()
+        e2e = time.time() - t0
+    finally:
+        prop_mod.propagate_ref = saved
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    n_tiles = int(np.prod([-(-v // t) for v, t in zip(VOLUME, TILE)]))
+    n = int((torch.unique(inst) > 0).sum())
+    print(f"unet3d chunked: phases {json.dumps(run.last_phase_s)} e2e {e2e:.3f} s, "
+          f"{n} instances (8 training steps: not held to the phantom's), cc_rounds "
+          f"{run.last_cc_rounds}, one forward tile reserves {tile_bytes} B", flush=True)
+    print(f"unet3d launches {json.dumps(counts)}", flush=True)
+    _need(tuple(inst.shape) == VOLUME, f"unet3d output {tuple(inst.shape)}")
+    _need(counts["upsample2x"] == 2 * n_tiles,
+          f"unet3d upsample2x: {counts['upsample2x']} launches, expected 2 x {n_tiles}")
+    _need(counts["dwconv3d"] == counts["mlp_block_tail"] == counts["ln_head"] == 0,
+          "unet3d launched a UNeXT kernel")
+    _need(counts["propagate"] == run.last_cc_rounds * len(prop_mod.launch_plan(192)),
+          "unet3d: propagate launches")
+    _need(tile_bytes > 0, "no forward tile memory measured")
+    for r in results:
+        r["launches"] += counts.get(r["name"], 0)
+    block = volume[192:320, 192:320, 192:256].contiguous()
+    x = ((block - mean) / std)[None, ..., None]
+    with torch.no_grad():
+        card = model(x).cpu()
+        cpu = model_from_checkpoint(ckpt, device="cpu")(x.cpu())
+    diff = (card[..., 3:5] - cpu[..., 3:5]).abs()
+    print(f"unet3d output card vs cpu on {tuple(block.shape)}: probabilities mean |d| "
+          f"{float(diff.mean()):.3g} (bound 4e-3, one bf16 ulp at 0.5-1), max "
+          f"{float(diff.max()):.3g}; skeleton > 0.8 on {int((cpu[..., 3] > 0.8).sum())} "
+          f"voxels (CPU)", flush=True)
+    _need(bool(torch.isfinite(card).all()) and float(diff.mean()) <= 4e-3,
+          "unet3d: the card's probabilities differ from the CPU's")
+    check_against_cpu(ckpt, model, volume, min_instances=0)
+    del model, volume, inst, run
+    torch.cuda.empty_cache()
 
 
 def check_yaml_reader() -> None:
@@ -1892,6 +2247,7 @@ def main() -> int:
 
     print(gpu_line(), flush=True)
     _need(torch.cuda.is_available(), "no CUDA device: chip_smoke needs a GPU")
+    block_pillow()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -1913,7 +2269,8 @@ def main() -> int:
     results = check_kernels()
     check_microbenchmarks(results)
     check_train_kernels(results)
-    host_phantom, n_default, n_expected = run_host_engine(results)
+    host_phantom, n_default, n_expected, host_mask = run_host_engine(results)
+    run_tif(results, host_phantom, host_mask)
     run_experimental(results, host_phantom, n_default, n_expected)
     ckpt, model, volume, chunked, chunked_peak, chunked_run = run_slice(results)
     check_against_cpu(ckpt, model, volume)
@@ -1927,8 +2284,12 @@ def main() -> int:
     del vol_u8
     torch.cuda.empty_cache()
     check_grads_against_cpu()
-    train_volumes = run_train_slice(results)
-    sparse_ckpt = run_sparse_train(results, run_skeletonize(train_volumes))
+    records = run_train_slice(results)
+    unet_ckpt = run_train_variants(results, records)
+    run_resume(records)
+    run_unet_inference(results, unet_ckpt)
+    sparse_ckpt = run_sparse_train(results, run_skeletonize(
+        [(r.image, r.masks) for r in records]))
     run_sparse_inference(results, sparse_ckpt, host_phantom)
     for r in results:
         r.pop("_largest")

@@ -8,8 +8,9 @@ Arrays are flax's msgpack ext type 1: a nested msgpack ``[shape, dtype
 name, raw bytes]`` (ext type 3 is the same for a numpy scalar). The small
 decoder and encoder below cover exactly what those files use; ``cfg`` stays
 a plain dict. :func:`save_checkpoint` writes a file that the JAX package's
-``load_checkpoint`` + ``restore_params`` read; ``opt_state`` is written as
-``None`` (the optimizer state's round trip is not ported yet).
+``load_checkpoint`` + ``restore_params`` read; ``opt_state`` is the flax
+state dict of JAX's optax state (``train/engine.py::flax_opt_state``) or
+``None``.
 
 :func:`torch_params_from_flax` maps the flax parameter tree onto the port's
 modules (``models/unext.py``), e.g. ``params/backbone/enc0_block0/dwconv/
@@ -147,15 +148,21 @@ def _flat(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# modules whose flax counterpart is a 1x1 ``nn.Conv`` (kernel [1,1,1,Cin,
+# Cout]) rather than an ``nn.Dense`` ([din, dout])
+_CONV1X1 = ("head_conv", "vector_head", "skeleton_head", "semantic_head")
+
+
 def torch_params_from_flax(params_np: dict) -> Dict[str, torch.Tensor]:
     """Flax parameter tree -> state dict of ``models.SpatialEmbedding``.
 
     Accepts the checkpoint's ``params`` entry (with or without its top-level
-    ``'params'`` key). Leaf names: ``kernel`` -> ``weight``, LayerNorm
-    ``scale`` -> ``weight``, ``bias`` and ``gamma`` keep theirs. Shapes:
-    depthwise/stem ``[k,k,k,1,C]`` -> ``[k,k,k,C]``; 1x1 convs
-    ``[1,1,1,Cin,Cout]`` -> ``[Cin,Cout]``; Dense ``[din,dout]`` and the
-    strided ``[2,2,2,Cin,Cout]`` Downsample kernels unchanged."""
+    ``'params'`` key). Leaf names: ``kernel`` -> ``weight``, LayerNorm and
+    GroupNorm ``scale`` -> ``weight``, ``bias`` and ``gamma`` keep theirs.
+    Shapes: depthwise/stem ``[k,k,k,1,C]`` -> ``[k,k,k,C]``; the 1x1 head
+    convs ``[1,1,1,Cin,Cout]`` -> ``[Cin,Cout]``; Dense ``[din,dout]``, the
+    strided ``[2,2,2,Cin,Cout]`` Downsample kernels and dense k^3 convs
+    (UNet3D's, a multi-channel stem) unchanged."""
     tree = params_np.get("params", params_np)
     out = {}
     for path, arr in _flat(tree).items():
@@ -165,17 +172,13 @@ def torch_params_from_flax(params_np: dict) -> Dict[str, torch.Tensor]:
         if leaf == "kernel" and arr.ndim == 5:
             if arr.shape[3] == 1 and parts[-2] in ("dwconv", "stem"):
                 arr = arr[:, :, :, 0, :]
-            elif arr.shape[:3] == (1, 1, 1):
+            elif parts[-2] in _CONV1X1:
                 arr = arr[0, 0, 0]
         out[".".join(parts[:-1] + [name])] = torch.from_numpy(
             np.array(arr, dtype=np.float32))
     return out
 
 
-# modules whose flax counterpart is a 1x1 ``nn.Conv`` (kernel [1,1,1,Cin,
-# Cout]) rather than an ``nn.Dense`` ([din, dout]), and the LayerNorms
-_CONV1X1 = ("head_conv", "vector_head", "skeleton_head", "semantic_head")
-_NORMS = ("norm", "final_norm")
 
 
 def flax_params_from_torch(state_dict: Dict[str, torch.Tensor]) -> dict:
@@ -187,10 +190,10 @@ def flax_params_from_torch(state_dict: Dict[str, torch.Tensor]) -> dict:
         parts = name.split(".")
         owner, leaf = parts[-2], parts[-1]
         arr = t.detach().to("cpu", torch.float32).numpy().copy()
-        if leaf == "weight":
-            leaf = "scale" if owner in _NORMS else "kernel"
+        if leaf == "weight":  # a norm's scale is the only 1-D weight
+            leaf = "scale" if arr.ndim == 1 else "kernel"
         if leaf == "kernel":
-            if owner in ("dwconv", "stem"):
+            if owner in ("dwconv", "stem") and arr.ndim == 4:
                 arr = arr[:, :, :, None, :]
             elif owner in _CONV1X1:
                 arr = arr[None, None, None]
@@ -296,18 +299,20 @@ def save_checkpoint(
     path: str,
     cfg: dict,
     state_dict: Dict[str, torch.Tensor],
+    opt_state: Optional[dict] = None,
     dataset_mean: float = 0.0,
     dataset_std: float = 1.0,
     extra: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Write a ``.skoots`` checkpoint of a ``SpatialEmbedding`` state dict
-    (``opt_state`` None), atomically: a crash never truncates the file."""
+    and an optimizer state (a flax state dict of numpy leaves, or None),
+    atomically: a crash never truncates the file."""
     from skoots_tpu_torch.config import to_plain
 
     state = {
         "cfg": to_plain(cfg),
         "params": flax_params_from_torch(state_dict),
-        "opt_state": None,
+        "opt_state": opt_state,
         "dataset_mean": float(dataset_mean),
         "dataset_std": float(dataset_std),
         "extra": to_plain(extra or {}),

@@ -19,8 +19,16 @@
 //    tool's Python loop builds it). The buffer (576 KB) does not fit one
 //    block's shared memory, so a block stages a 128-lane slice of it (36 KB)
 //    and 16 blocks cover the 2048 lanes; `reps` independent copies of the
-//    grid (grid.y) fill all 132 SMs. Bound: shared-memory loads and FP32
-//    FMA throughput, one of each per tap.
+//    grid (grid.y) fill all 132 SMs. The 128 weights, the same for every
+//    column, are read from shared memory once per thread into registers;
+//    a thread of the dynamic variants owns 4 adjacent lanes and reads each
+//    source row as one 16-byte vector (its 8 rows and 4 x CHAINS sums stay
+//    in registers), a thread of the static ones one lane (its 64 rows
+//    would not fit 4 wide). Within a column the compiler loads each
+//    distinct row once (8 or 64 loads for the tool's 343); a barrier
+//    between columns keeps it from reusing them across columns. Bound: the
+//    FP32 FMA rate, or shared-memory wavefronts for the static rows
+//    (tools/bench_loadfma.py counts both in the SASS).
 #include "common.cuh"
 
 namespace {
@@ -104,11 +112,22 @@ constexpr int LANES = 16 * 128;
 constexpr int SL = 128;  // lanes per block
 constexpr int NW = 128;  // weights
 
-template <bool DYNAMIC, int CHAINS>
+// VL consecutive floats at p (16-byte aligned for VL = 4) into v
+template <int VL>
+__device__ __forceinline__ void load_lanes(const float* p, float* v) {
+  if constexpr (VL == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <bool DYNAMIC, int CHAINS, int VL>
 __global__ void __launch_bounds__(THREADS)
 loadfma_kernel(const float* __restrict__ buf, const float* __restrict__ w,
                float* __restrict__ out, int zero) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* sbuf = smem;               // [ROWS, SL]
   float* sw = smem + ROWS * SL;     // [NW]
   const int l0 = blockIdx.x * SL;
@@ -117,29 +136,48 @@ loadfma_kernel(const float* __restrict__ buf, const float* __restrict__ w,
   for (int e = threadIdx.x; e < NW; e += THREADS) sw[e] = w[e];
   __syncthreads();
 
-  const int lane = threadIdx.x % SL;
-  constexpr int G = THREADS / SL;
+  float wr[NW];  // every column's weights, in registers
+#pragma unroll
+  for (int e = 0; e < NW; e += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(sw + e);
+    wr[e] = q.x; wr[e + 1] = q.y; wr[e + 2] = q.z; wr[e + 3] = q.w;
+  }
+  constexpr int PER = SL / VL;       // threads a column
+  constexpr int G = THREADS / PER;   // columns at once
+  const int lane = (threadIdx.x % PER) * VL;
   float* o = out + (long long)blockIdx.y * COLS * LANES;
-  for (int i = threadIdx.x / SL; i < COLS; i += G) {
+  for (int i = threadIdx.x / PER; i < COLS; i += G) {
     // the static variant's sum does not depend on i: a base that moves by
     // i * zero (zero is 0 at run time, unknown to the compiler) and the
     // barrier keep it from computing the sum once and storing it 32 times
     asm volatile("" ::: "memory");
     const float* col = sbuf + (DYNAMIC ? i : i * zero) * SL + lane;
-    float acc[CHAINS];
+    float acc[CHAINS][VL];
 #pragma unroll
-    for (int c = 0; c < CHAINS; ++c) acc[c] = 0.f;
+    for (int c = 0; c < CHAINS; ++c)
+#pragma unroll
+      for (int k = 0; k < VL; ++k) acc[c][k] = 0.f;
 #pragma unroll
     for (int t = 0; t < TAPS; ++t) {
       const int row = DYNAMIC ? t % 8 : t % COLS;
-      acc[t % CHAINS] = fmaf(col[row * SL], sw[t % NW], acc[t % CHAINS]);
+      float v[VL];
+      load_lanes<VL>(col + row * SL, v);
+#pragma unroll
+      for (int k = 0; k < VL; ++k)
+        acc[t % CHAINS][k] = fmaf(v[k], wr[t % NW], acc[t % CHAINS][k]);
     }
 #pragma unroll
     for (int width = CHAINS; width > 1; width /= 2)
 #pragma unroll
       for (int n = 0; n < width / 2; ++n)
-        acc[n] = __fadd_rn(acc[2 * n], acc[2 * n + 1]);
-    o[(long long)i * LANES + l0 + lane] = acc[0];
+#pragma unroll
+        for (int k = 0; k < VL; ++k)
+          acc[n][k] = __fadd_rn(acc[2 * n][k], acc[2 * n + 1][k]);
+    float* dst = o + (long long)i * LANES + l0 + lane;
+    if constexpr (VL == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+    else
+      dst[0] = acc[0][0];
   }
 }
 
@@ -148,7 +186,7 @@ int launch_loadfma(const void* buf, const void* w, void* out, int reps,
                    cudaStream_t s) {
   const dim3 grid(LANES / SL, reps);
   const size_t shmem = (ROWS * SL + NW) * sizeof(float);
-  loadfma_kernel<DYNAMIC, CHAINS><<<grid, THREADS, shmem, s>>>(
+  loadfma_kernel<DYNAMIC, CHAINS, DYNAMIC ? 4 : 1><<<grid, THREADS, shmem, s>>>(
       static_cast<const float*>(buf), static_cast<const float*>(w),
       static_cast<float*>(out), 0);
   return (int)cudaGetLastError();

@@ -10,7 +10,7 @@ File contract per volume (a directory holds any number):
                               .skeletons.trch too)
 
 The dataset also takes in-memory :class:`SparseRecord`\\ s, so a caller
-without Pillow (or without files) can train. The host sampling is numpy,
+without files can train. The host sampling is numpy,
 copied from the JAX package: the same records, cfg and ``Generator`` give
 the same arrays.
 """

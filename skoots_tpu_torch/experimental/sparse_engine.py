@@ -37,7 +37,7 @@ from skoots_tpu_torch.infer.autoknobs import (
 from skoots_tpu_torch.models import cfg_to_model, init_model
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
 from skoots_tpu_torch.train.data import batch_iterator, prefetch_iterator
-from skoots_tpu_torch.train.engine import TrainState, cfg_optimizer
+from skoots_tpu_torch.train.engine import TrainState, cfg_optimizer, flax_opt_state
 from skoots_tpu_torch.train.losses import cfg_loss
 from skoots_tpu_torch.train.sigma import Sigma, init_sigma
 from skoots_tpu_torch.train.transforms import make_augment
@@ -242,7 +242,8 @@ def train_sparse(cfg: dict, steps_per_epoch: Optional[int] = None, device="cuda"
     in-memory ``records`` (sampled ``TRAIN_SAMPLE_PER_IMAGE[0]`` times a
     volume, else once). Saves ``SAVE_PATH/<time>_sparse.skoots`` every
     ``SAVE_INTERVAL`` epochs and after the last, with the SWA average where
-    it started and ``extra`` = {epoch, swa, calibrated_prob_threshold}."""
+    it started, the optimizer state (as JAX saves it, after the updates
+    applied so far) and ``extra`` = {epoch, swa, calibrated_prob_threshold}."""
     t = cfg["TRAIN"]
     device = torch.device(device)
     if records is not None:
@@ -275,7 +276,7 @@ def train_sparse(cfg: dict, steps_per_epoch: Optional[int] = None, device="cuda"
     swa, swa_n = None, 0
     os.makedirs(t["SAVE_PATH"], exist_ok=True)
     save_name = os.path.join(t["SAVE_PATH"], time.strftime("%b%d_%H-%M-%S") + "_sparse.skoots")
-    n_steps, means, sem_thr, saved = 0, {}, None, model
+    n_steps, n_skipped, means, sem_thr, saved = 0, 0, {}, None, model
     for e in range(epochs):
         t0 = time.time()
         gen = torch.Generator().manual_seed(t["SEED"] + e)
@@ -283,6 +284,7 @@ def train_sparse(cfg: dict, steps_per_epoch: Optional[int] = None, device="cuda"
         for host_batch in host_iter(e):
             metrics = step_fn(augment(host_batch, gen), e)
             n_steps += 1
+            n_skipped += bool(metrics.get("skipped", False))
             for k, v in metrics.items():
                 agg.setdefault(k, []).append(v)
         means = {k: float(np.mean([float(v) for v in vs])) for k, vs in agg.items()}
@@ -299,8 +301,9 @@ def train_sparse(cfg: dict, steps_per_epoch: Optional[int] = None, device="cuda"
             model.train()
             if sem_thr is not None:
                 log.info("calibrated semantic threshold: %.6f", sem_thr)
-            save_checkpoint(save_name, cfg, saved.state_dict(), dataset_mean=mean,
-                            dataset_std=std,
+            save_checkpoint(save_name, cfg, saved.state_dict(),
+                            flax_opt_state(optimizer, model, cfg, n_steps - n_skipped),
+                            dataset_mean=mean, dataset_std=std,
                             extra={"epoch": e, "swa": swa is not None,
                                    "calibrated_prob_threshold": sem_thr})
             log.info("checkpoint -> %s", save_name)

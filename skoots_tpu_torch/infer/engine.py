@@ -515,8 +515,7 @@ def _write_reports(stem: str, stats: dict, dt: float, owns_tracing: bool):
 
 
 def _default_mask_path(image_path: str) -> str:
-    """``<image>_instance_mask.tif``, or ``.npy`` for a ``.npy`` image, so
-    that a machine without Pillow writes the mask of a ``.npy`` volume (the
+    """``<image>_instance_mask.tif``, or ``.npy`` for a ``.npy`` image (the
     JAX package writes a tif for every input)."""
     stem, ext = os.path.splitext(image_path)
     return stem + "_instance_mask" + (".npy" if ext.lower() == ".npy" else ".tif")

@@ -1,8 +1,7 @@
 """cfg -> model factory (port of ``skoots_tpu/models/registry.py``).
 
-``cfg`` is the plain dict a ``.skoots`` checkpoint carries. The port builds
-the ``bism_unext`` / ``unext`` architecture; any other raises
-``NotImplementedError`` (``bism_unet`` is queued in ROADMAP.md).
+``cfg`` is the plain dict a ``.skoots`` checkpoint carries: ``bism_unext`` /
+``unext`` build UNeXT3D, ``bism_unet`` / ``unet`` UNet3D, as in JAX.
 """
 
 from __future__ import annotations
@@ -12,34 +11,31 @@ import math
 import torch
 
 from skoots_tpu_torch.models.spatial_embedding import SpatialEmbedding
-from skoots_tpu_torch.models.unext import UNeXT3D
+from skoots_tpu_torch.models.unext import LayerNormParams, UNet3D, UNeXT3D
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
 def cfg_to_model(cfg: dict, device=None) -> SpatialEmbedding:
-    """Build ``SpatialEmbedding(UNeXT3D)`` as described by ``cfg['MODEL']``
-    (parameters zero/one-initialised; load weights with
+    """Build ``SpatialEmbedding(UNeXT3D | UNet3D)`` as described by
+    ``cfg['MODEL']`` (parameters zero/one-initialised; load weights with
     :func:`load_flax_params`)."""
     m = cfg["MODEL"]
     arch = m["ARCHITECTURE"]
-    if arch not in ("bism_unext", "unext"):
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet (see ROADMAP.md); "
-            "the port builds 'bism_unext' / 'unext'")
-    if float(m.get("DROP_PATH_RATE", 0.0)) > 0:
-        raise NotImplementedError(
-            "MODEL.DROP_PATH_RATE > 0 (stochastic depth) is not ported yet "
-            "(see ROADMAP.md); the port trains with DROP_PATH_RATE 0")
     dtype = _DTYPES[m.get("DTYPE", "bfloat16")]
-    backbone = UNeXT3D(
-        in_channels=m["IN_CHANNELS"], out_channels=m["OUT_CHANNELS"],
-        dims=tuple(m["DIMS"]), depths=tuple(m["DEPTHS"]),
-        kernel_size=m["KERNEL_SIZE"],
-        layer_scale_init_value=m["LAYER_SCALE_INIT_VALUE"],
-        activation=m["ACTIVATION"], dtype=dtype, device=device,
-    )
+    common = dict(in_channels=m["IN_CHANNELS"], out_channels=m["OUT_CHANNELS"],
+                  dims=tuple(m["DIMS"]), depths=tuple(m["DEPTHS"]),
+                  kernel_size=m["KERNEL_SIZE"], activation=m["ACTIVATION"], dtype=dtype,
+                  device=device)
+    if arch in ("bism_unext", "unext"):
+        backbone = UNeXT3D(drop_path_rate=float(m["DROP_PATH_RATE"]),
+                           layer_scale_init_value=m["LAYER_SCALE_INIT_VALUE"], **common)
+    elif arch in ("bism_unet", "unet"):
+        backbone = UNet3D(**common)  # JAX's UNet3D takes no DropPath or layer scale
+    else:
+        raise RuntimeError(f"{arch!r} is not a valid architecture; valid: "
+                           "bism_unext, unext, bism_unet, unet")
     return SpatialEmbedding(backbone, m["OUT_CHANNELS"], dtype, device).eval()
 
 
@@ -71,13 +67,15 @@ def init_parameters(model: SpatialEmbedding, seed: int) -> SpatialEmbedding:
       flax's fan-in rule -- the product of all but the output axis of the
       flax kernel, i.e. ``k^3`` for a depthwise ``[k, k, k, 1, C]`` kernel,
       ``8 * Cin`` for the strided ``[2, 2, 2, Cin, C]`` Downsample, ``din``
-      for a dense or 1x1 kernel;
-    * biases 0, LayerNorm scales 1, layer-scale ``gamma`` the config's
-      ``LAYER_SCALE_INIT_VALUE`` (set by the constructor, left as it is).
+      for a dense or 1x1 kernel, ``k^3 * Cin`` for a dense ``[k, k, k, Cin, C]``
+      conv (UNet3D, a multi-channel stem);
+    * biases 0, LayerNorm and GroupNorm scales 1, layer-scale ``gamma`` the
+      config's ``LAYER_SCALE_INIT_VALUE`` (set by the constructor, left as
+      it is).
     """
     gen = torch.Generator().manual_seed(int(seed))
     norms = {name for name, mod in model.named_modules()
-             if mod.__class__.__name__ == "LayerNormParams"}
+             if isinstance(mod, LayerNormParams)}
     with torch.no_grad():
         for name, p in model.named_parameters():
             owner, leaf = name.rsplit(".", 1)

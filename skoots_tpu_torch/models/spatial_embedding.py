@@ -10,6 +10,8 @@ semantic probability.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -26,16 +28,19 @@ class SpatialEmbedding(nn.Module):
         self.skeleton_head = Dense(feat, 1, device)
         self.semantic_head = Dense(feat, 1, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """``x`` ``[B, X, Y, Z, 1]`` (normalised image) -> ``[B, X, Y, Z, 5]``
         f32. In eval mode (inference) no autograd graph is recorded; in
         train mode the output is differentiable, through the kernels'
-        autograd wrappers."""
+        autograd wrappers. ``drop_gen`` draws the backbone's DropPath masks
+        in training (None: no DropPath)."""
         with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
-            return self._forward(x)
+            return self._forward(x, drop_gen)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        feat = self.backbone(x)
+    def _forward(self, x: torch.Tensor,
+                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self.backbone(x, drop_gen)
         heads = (self.vector_head, self.skeleton_head, self.semantic_head)
         # the three 1x1 heads as one matmul: each output column is its own
         # f32 dot product, so the columns equal three separate convs

@@ -7,7 +7,14 @@ A train step is the model forward and the loss stack (:func:`make_train_step`'s
 ``loss_fn``), ``loss.backward()`` through the kernels' autograd wrappers,
 and the optimizer update (``apply_update``); the three are public so a
 caller can time them apart. The loss stack, the strict-``>`` epoch gating
-and the sigma annealing are the JAX package's.
+and the sigma annealing are the JAX package's. DropPath's masks come from a
+``torch.Generator`` seeded from ``TRAIN.SEED`` and the step
+(:func:`drop_path_generator`), where JAX folds the step into its key.
+
+The optimizer state travels in checkpoints as JAX writes it: the flax state
+dict of optax's ``inject_hyperparams(<optimizer>)`` state
+(:func:`flax_opt_state`, :func:`load_flax_opt_state`), so either package
+resumes from the other's file with ``LOAD_PRETRAINED_OPTIMIZER``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,12 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from skoots_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from skoots_tpu_torch.checkpoint import (
+    flax_params_from_torch,
+    load_checkpoint,
+    save_checkpoint,
+    torch_params_from_flax,
+)
 from skoots_tpu_torch.models import init_model, load_flax_params
 from skoots_tpu_torch.ops.embed2prob import baked_embed_to_prob
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
@@ -86,14 +98,121 @@ def cfg_optimizer(cfg: dict, params) -> tuple[torch.optim.Optimizer, Callable[[i
     return opt, schedule
 
 
+# optax moment name -> torch state key, per optimizer
+_MOMENTS = {"adamw": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+            "adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+            "adamax": {"mu": "exp_avg", "nu": "exp_inf"},
+            "sgd": {"trace": "momentum_buffer"}}
+
+
+def _opt_layout(cfg: dict) -> tuple[str, bool]:
+    """(optimizer name, whether SGD carries a momentum trace)."""
+    t = cfg["TRAIN"]
+    return t["OPTIMIZER"].lower(), "momentum" in t["OPTIMIZER_KEYWORD_ARGUMENTS"]
+
+
+def flax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module, cfg: dict,
+                   count: int) -> dict:
+    """The optimizer's state as the flax state dict of the JAX package's
+    ``inject_hyperparams(<optax optimizer>)`` state after ``count`` updates,
+    which JAX's ``restore_params(optimizer.init(params), ...)`` reads:
+    ``{'count', 'hyperparams', 'hyperparams_states': {}, 'inner_state'}``
+    with the moments keyed by the flax parameter names in flax layout.
+
+    * AdamW / Adam / Adamax: ``inner_state['0']`` = ``{'count', 'mu', 'nu'}``
+      (mu = ``exp_avg``, nu = ``exp_avg_sq``, or Adamax's ``exp_inf``: torch
+      and optax 0.2.6 both keep ``max(b2 * nu, |g| + eps)``); then one empty
+      state per further transform (AdamW's weight decay, the lr scale).
+      Hyperparams b1, b2, eps, eps_root (Adam, AdamW; 0), learning_rate,
+      weight_decay (AdamW).
+    * SGD: ``inner_state['0']`` = ``{'trace': momentum_buffer}`` when the cfg
+      names a momentum, else ``{}``; hyperparams learning_rate (momentum).
+
+    Every leaf is a 0-d or parameter-shaped numpy array (f32, counts
+    int32), as ``flax.serialization.to_state_dict`` gives them."""
+    name, has_trace = _opt_layout(cfg)
+    if name not in _MOMENTS:
+        raise RuntimeError(f"unknown optimizer {name!r}")
+    group = optimizer.param_groups[0]
+    names = {id(p): n for n, p in model.named_parameters()}
+    f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+
+    def tree(key: str) -> dict:
+        out = {}
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            out[names[id(p)]] = st[key] if st.get(key) is not None else torch.zeros_like(p)
+        return flax_params_from_torch(out)
+
+    hp = {"learning_rate": f32(group["lr"])}
+    if name == "sgd":
+        if has_trace:
+            hp["momentum"] = f32(group["momentum"])
+        inner = {"0": {"trace": tree("momentum_buffer")} if has_trace else {}, "1": {}}
+    else:
+        b1, b2 = group["betas"]
+        hp.update(b1=f32(b1), b2=f32(b2), eps=f32(group["eps"]))
+        if name != "adamax":
+            hp["eps_root"] = f32(0.0)
+        moments = _MOMENTS[name]
+        inner = {"0": {"count": np.asarray(count, np.int32),
+                       **{k: tree(v) for k, v in moments.items()}}, "1": {}}
+        if name == "adamw":
+            hp["weight_decay"] = f32(group["weight_decay"])
+            inner["2"] = {}
+    return {"count": np.asarray(count, np.int32), "hyperparams": hp,
+            "hyperparams_states": {}, "inner_state": inner}
+
+
+def load_flax_opt_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                        cfg: dict, state: dict) -> int:
+    """Restore a checkpoint's ``opt_state`` (:func:`flax_opt_state`'s layout,
+    as either package writes it) into ``optimizer``: the moments, the step
+    count and the hyperparams other than the learning rate (which the
+    schedule sets every step), as JAX's ``restore_params`` takes them from
+    the file. Returns the update count."""
+    name, has_trace = _opt_layout(cfg)
+    group = optimizer.param_groups[0]
+    hp = state["hyperparams"]
+    inner = state["inner_state"]["0"]
+    moments = {v: torch_params_from_flax(inner[k]) for k, v in _MOMENTS[name].items()
+               if name != "sgd" or has_trace}
+    if name == "sgd":
+        if has_trace:
+            group["momentum"] = float(hp["momentum"])
+    else:
+        group["betas"] = (float(hp["b1"]), float(hp["b2"]))
+        group["eps"] = float(hp["eps"])
+        if name == "adamw":
+            group["weight_decay"] = float(hp["weight_decay"])
+    step = int(inner.get("count", state["count"]))
+    for n, p in model.named_parameters():
+        st = optimizer.state[p]
+        for key, values in moments.items():
+            if values[n].shape != p.shape:
+                raise ValueError(f"opt_state {key} of {n}: {tuple(values[n].shape)} "
+                                 f"against {tuple(p.shape)}")
+            st[key] = values[n].to(p.device, p.dtype).clone()
+        if name != "sgd":
+            st["step"] = torch.tensor(float(step))
+    return int(state["count"])
+
+
+def drop_path_generator(seed: int, step: int) -> torch.Generator:
+    """The host generator of training step ``step``'s DropPath masks, seeded
+    from (``TRAIN.SEED``, step) through numpy's ``SeedSequence``."""
+    hi, lo = np.random.SeedSequence([int(seed), int(step)]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+
+
 def _losses(cfg: dict):
     t = cfg["TRAIN"]
     return tuple(cfg_loss(t[n], t[f"{n}_KEYWORDS"], t[f"{n}_VALUES"])
                  for n in ("LOSS_EMBED", "LOSS_PROBABILITY", "LOSS_SKELETON"))
 
 
-def _loss_terms(model, batch, sigma_value, vector_scale, losses):
-    out = model(batch["image"])
+def _loss_terms(model, batch, sigma_value, vector_scale, losses, drop_gen=None):
+    out = model(batch["image"], drop_gen)
     vec, skel, prob = out[..., 0:3], out[..., 3:4], out[..., 4:5]
     embedding = vector_to_embedding(vector_scale, vec)
     embed_prob = baked_embed_to_prob(embedding, batch["baked"], sigma_value)
@@ -109,7 +228,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     of ``model`` (in train mode). Batch (channels-last, on the model's
     device): image ``[B, X, Y, Z, 1]`` f32 normalised, masks and
     skele_masks ``[B, X, Y, Z, 1]`` f32, baked ``[B, X, Y, Z, 3]`` f32.
-    Metrics: loss, embed, prob, skele (0-d tensors) and lr."""
+    Metrics: loss, embed, prob, skele (0-d tensors) and lr. With
+    ``MODEL.DROP_PATH_RATE`` > 0 the n-th call (from 0) draws its DropPath
+    masks from ``drop_path_generator(TRAIN.SEED, n)``; ``loss_fn(batch,
+    epoch, drop_gen=None)`` takes the generator explicitly."""
     t = cfg["TRAIN"]
     vector_scale = tuple(float(v) for v in cfg["SKOOTS"]["VECTOR_SCALING"])
     losses = _losses(cfg)
@@ -118,8 +240,11 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     starts = (t["LOSS_EMBED_START_EPOCH"], t["LOSS_PROBABILITY_START_EPOCH"],
               t["LOSS_SKELETON_START_EPOCH"])
 
-    def loss_fn(batch, epoch: int):
-        terms = _loss_terms(model, batch, sigma(epoch), vector_scale, losses)
+    seed, drop = int(t["SEED"]), float(cfg["MODEL"]["DROP_PATH_RATE"]) > 0
+    calls = [0]
+
+    def loss_fn(batch, epoch: int, drop_gen: Optional[torch.Generator] = None):
+        terms = _loss_terms(model, batch, sigma(epoch), vector_scale, losses, drop_gen)
         # epoch gating, strict >: a gated-off term still enters times 0
         total = sum(w * float(epoch > e0) * term
                     for w, e0, term in zip(weights, starts, terms))
@@ -135,8 +260,10 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         return lr
 
     def step(batch, epoch: int) -> Dict[str, Any]:
+        gen = drop_path_generator(seed, calls[0]) if drop else None
+        calls[0] += 1
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(batch, epoch)
+        total, metrics = loss_fn(batch, epoch, gen)
         total.backward()
         metrics["lr"] = apply_update(epoch)
         return metrics
@@ -218,8 +345,9 @@ def train(
     """Train a freshly initialised model (weights from ``TRAIN.SEED``, or a
     pretrained checkpoint) on ``device`` for ``TRAIN.NUM_EPOCHS`` epochs.
     ``data_iter(epoch)`` yields device batches (:func:`make_train_step`).
-    Saves a ``.skoots`` checkpoint every ``SAVE_INTERVAL`` epochs and after
-    the last. With a ``writer`` (TensorBoard's ``SummaryWriter`` API), each
+    Saves a ``.skoots`` checkpoint (parameters and optimizer state) every
+    ``SAVE_INTERVAL`` epochs and after the last; ``LOAD_PRETRAINED_OPTIMIZER``
+    with a pretrained checkpoint resumes its optimizer state. With a ``writer`` (TensorBoard's ``SummaryWriter`` API), each
     epoch logs the mean losses and lr as scalars and one ``"Train"`` image
     of panels from an eval forward on the epoch's last batch
     (:func:`write_panels`), as the JAX loop does. ``AUTOGRAD_PROFILE``
@@ -229,16 +357,17 @@ def train(
     t = cfg["TRAIN"]
     device = torch.device(device)
     model = init_model(cfg, t["SEED"], device=device).train()
+    ckpt = None
     if t["PRETRAINED_MODEL_PATH"]:
         ckpt = load_checkpoint(t["PRETRAINED_MODEL_PATH"][0])
         load_flax_params(model, ckpt["params"])
         log.info("loaded pretrained params from %s", t["PRETRAINED_MODEL_PATH"][0])
-        if t["LOAD_PRETRAINED_OPTIMIZER"] and ckpt.get("opt_state") is not None:
-            raise NotImplementedError(
-                "restoring an optimizer state from a checkpoint is not ported "
-                "yet (see ROADMAP.md)")
 
     optimizer, schedule = cfg_optimizer(cfg, model.parameters())
+    count0 = 0
+    if ckpt is not None and t["LOAD_PRETRAINED_OPTIMIZER"] and ckpt.get("opt_state") is not None:
+        count0 = load_flax_opt_state(optimizer, model, cfg, ckpt["opt_state"])
+        log.info("restored the optimizer state (%d updates)", count0)
     sigma = init_sigma(cfg)
     train_step = make_train_step(model, optimizer, schedule, sigma, cfg)
     eval_step = make_eval_step(model, sigma, cfg) if val_iter else None
@@ -289,6 +418,7 @@ def train(
 
             if (e + 1) % t["SAVE_INTERVAL"] == 0 or e == t["NUM_EPOCHS"] - 1:
                 save_checkpoint(save_name, cfg, model.state_dict(),
+                                flax_opt_state(optimizer, model, cfg, count0 + steps),
                                 dataset_mean=dataset_mean, dataset_std=dataset_std,
                                 extra={"epoch": e, "object_radius": object_radius})
                 log.info("checkpoint -> %s", save_name)

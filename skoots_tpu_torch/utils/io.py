@@ -2,9 +2,10 @@
 disk-backed ``.npy`` memmaps of out-of-core inference.
 
 Canonical layout: a volume is ``[X, Y, Z]`` on the host; a multi-page TIFF
-stores one page per Z, page rows = X, page cols = Y. Pillow (TIFF) and h5py
-(HDF5) are imported only inside the functions that need them, so the rest of
-the port imports without them.
+stores one page per Z, page rows = X, page cols = Y. TIFF goes through the
+port's own codec (``utils/tiff.py``, no Pillow); h5py (HDF5) is imported only
+inside the functions that need it, so the rest of the port imports without
+it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+from skoots_tpu_torch.utils import tiff
 
 
 def _canon_np(vol: np.ndarray) -> np.ndarray:
@@ -35,22 +38,19 @@ def imread(path: str) -> np.ndarray:
         with h5py.File(path, "r") as f:
             return _canon_np(f[next(iter(f.keys()))][...])
 
-    from PIL import Image, ImageSequence
-
-    Image.MAX_IMAGE_PIXELS = None  # EM slices are big; trust local files
-    with Image.open(path) as img:
-        pages = []
-        for frame in ImageSequence.Iterator(img):
-            arr = np.asarray(frame)
-            if arr.ndim == 3:  # [X, Y, C]
-                arr = arr[..., 2] if arr.shape[-1] > 3 else arr[..., 0]
-            pages.append(arr)
+    pages = []
+    for arr in tiff.read_pages(path):
+        if arr.ndim == 3:  # [X, Y, C]
+            arr = arr[..., 2] if arr.shape[-1] > 3 else arr[..., 0]
+        pages.append(arr)
     vol = np.stack(pages, axis=0)  # [Z, X, Y]
     return np.ascontiguousarray(vol.transpose(1, 2, 0))
 
 
 def imsave(path: str, volume: np.ndarray) -> None:
-    """Save an ``[X, Y, Z]`` volume; TIFF is written one page per Z."""
+    """Save an ``[X, Y, Z]`` volume; TIFF is written one page per Z, Deflate,
+    in the sample type Pillow writes for the dtype (int64 as int32, bool as
+    1-bit pages; ``tiff.pillow_dtype``), as the JAX package writes it."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
         np.save(path, volume)
@@ -62,14 +62,8 @@ def imsave(path: str, volume: np.ndarray) -> None:
             f.create_dataset("volume", data=volume, compression="gzip")
         return
 
-    from PIL import Image
-
-    vol = volume.transpose(2, 0, 1)  # [Z, X, Y]
-    if vol.dtype in (np.int64, np.uint64):
-        vol = vol.astype(np.int32)
-    frames = [Image.fromarray(p) for p in vol]
-    frames[0].save(path, save_all=True, append_images=frames[1:],
-                   compression="tiff_deflate")
+    vol = np.asarray(volume).transpose(2, 0, 1)  # [Z, X, Y]
+    tiff.write_pages(path, tiff.as_pillow_writes(vol))
 
 
 def open_outofcore(path: str, shape: Tuple[int, ...], dtype: str) -> np.memmap:

@@ -165,7 +165,8 @@ def test_sparse_cli_end_to_end(sparse_dir, tmp_path, monkeypatch, caplog):
     """``skoots-train-torch`` with ``EXPERIMENTAL.IS_SPARSE`` on the CPU,
     2 epochs x 2 steps (as tests/test_sparse.py's JAX run): one
     ``*_sparse.skoots`` whose calibrated threshold lies in [0.5, 0.9999],
-    loaded by both packages with equal f32 forwards."""
+    loaded by both packages with equal f32 forwards, and whose optimizer
+    state JAX's ``restore_params`` reads (4 updates)."""
     from skoots_tpu.models import init_model as jinit
     from skoots_tpu_torch.train.cli import main
 
@@ -195,3 +196,8 @@ def test_sparse_cli_end_to_end(sparse_dir, tmp_path, monkeypatch, caplog):
     want = np.asarray(jmodel.apply(restore_params(tmpl, ck["params"]), jnp.asarray(x),
                                    deterministic=True))
     np.testing.assert_allclose(tm(T(x)).detach().numpy(), want, atol=2e-5, rtol=0)
+    # the optimizer state, saved as JAX's sparse loop saves it: 4 updates
+    from skoots_tpu.train.engine import cfg_optimizer as jax_cfg_optimizer
+
+    opt_state = restore_params(jax_cfg_optimizer(ck["cfg"])[0].init(tmpl), ck["opt_state"])
+    assert int(opt_state.count) == 4

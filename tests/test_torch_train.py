@@ -111,10 +111,9 @@ def test_init_follows_flax_initialisers():
             std = float(v.std())
             assert abs(std * np.sqrt(fan_in) - 1.0) < 0.1 + 3 / np.sqrt(v.numel()), k
             assert float(v.abs().max()) <= 2.0 / 0.8796 / np.sqrt(fan_in) + 1e-6, k
-    with pytest.raises(NotImplementedError):
-        cfg = C.get_cfg_defaults()
-        cfg["MODEL"]["DROP_PATH_RATE"] = 0.1
-        cfg_to_model(cfg)
+    cfg = C.get_cfg_defaults()  # DropPath builds, and adds no parameter (as in flax)
+    cfg["MODEL"]["DROP_PATH_RATE"] = 0.1
+    assert cfg_to_model(cfg).state_dict().keys() == wide.keys()
 
 
 def test_msgpack_encoder_writes_flax_bytes(rng):
