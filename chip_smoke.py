@@ -101,7 +101,31 @@ them. In order:
     upsamples a tile, no dwconv), its probabilities and instances card vs
     CPU on the 128x128x64 block; the load + FMA variants' bounds come from
     their SASS (FFMA against shared-memory wavefronts a column);
-16. prints one JSON line of per-kernel results (each with its least time on
+16. the per-slice 2D mode, the CC variants and the mask tools' slice: after
+    the sparse probe, the 512^3 bench phantom through
+    ``make_chunked_pipeline`` with (a) ``cc_impl="sparse"``, (b)
+    ``SKOOTS_CC_IMPL=sparse`` and (c) ``cc_scans_per_round=1``, each mask
+    equal to the dense run's, (a) and (b) labelled by the engine JAX's
+    rule picks from the sparse CC's points, edges and rounds (the dilated
+    skeleton's edges overflow ``4 * cc_n_max``, so the dense CC), (c)
+    ``len(launch_plan(192))`` propagate launches a round; (d) without the
+    skeleton's dilation, sparse against dense: the sparse CC labels it, no
+    propagate launch; ``2-cc`` and the rounds printed; the thrifty
+    pipeline under ``SKOOTS_CC_IMPL=sparse`` (dense CC, its default mask);
+    at the end, on the 256^3 host phantom, ``run_perslice_inference`` from
+    scratch (phase 1 with the host cell's launches) and on its cached
+    buffers (the masks equal; the assign and stitch seconds), its
+    ``perslice_segment`` on the card against the CPU's voxel for voxel,
+    propagate against its plain version at the per-slice layout
+    ``[2Z - 1, X, Y]``, the host engine with ``use_cached_data`` under
+    ``SKOOTS_CC_IMPL=sparse`` (mask equal to the default one; tiles per CC
+    engine), and the oracle on the accuracy campaign's aniso val phantom
+    (``make_tubes((192, 192, 32), 24, radius=4, seed=999,
+    min_separation=10)``: the bake kernel against its plain version on the
+    phantom's labels and packed skeletons, exact; ``perfect_prediction``
+    with one bake launch counted; ``perslice_segment`` at scale (12, 12,
+    6), N = 10): 21 of 21 at IoU 0.5;
+17. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -653,6 +677,35 @@ def _launch_counters():
             "propagate": prop_mod.propagate}
 
 
+def _drive(tag: str, fn, results: list | None = None, kernels: dict | None = None):
+    """Run ``fn()`` with the launch count of every kernel of ``kernels`` (by
+    default :func:`_launch_counters`') set to 0 just before and read just
+    after, the plain propagation barred; print the seconds and counts, and
+    add the counts to ``results`` when it is given. Returns ``(fn's
+    result, counts, seconds)``."""
+    import torch
+
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+
+    kernels = kernels or _launch_counters()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
+    try:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    finally:
+        prop_mod.propagate_ref = saved
+    counts = {name: k.launches for name, k in kernels.items()}
+    for r in results or ():
+        r["launches"] += counts.get(r["name"], 0)
+    print(f"{tag}: {dt:.3f} s, launches {json.dumps(counts)}", flush=True)
+    return out, counts, dt
+
+
 def run_host_engine(results: list):
     """The host-streaming engine through ``run_inference`` at its defaults
     on a seeded 256^3 tube phantom (uint8 ``.npy``) with the bench
@@ -665,7 +718,6 @@ def run_host_engine(results: list):
     import torch
 
     from skoots_tpu_torch.infer import engine
-    from skoots_tpu_torch.kernels import propagate as prop_mod
     from skoots_tpu_torch.utils.synthetic import render_tubes, tube_segments
 
     ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
@@ -681,24 +733,13 @@ def run_host_engine(results: list):
     np.save(path, vol)
     print(f"host engine: phantom {shape} uint8, {n_expected} tubes placed", flush=True)
 
-    kernels = _launch_counters()
     per_forward = FORWARD_KERNELS_PER_TILE
 
-    def run(tag, **kw):
-        for fn in kernels.values():
-            fn.launches = 0
+    def run(tag, into=None, **kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
-        try:
-            t0 = time.time()
-            mask = engine.run_inference(path, ckpt, output_path=os.path.join(
-                work, f"mask_{tag}.npy"), **kw)
-            torch.cuda.synchronize()
-            e2e = time.time() - t0
-        finally:
-            prop_mod.propagate_ref = saved
-        counts = {name: fn.launches for name, fn in kernels.items()}
+        mask, counts, e2e = _drive(f"host engine [{tag}]", lambda: engine.run_inference(
+            path, ckpt, output_path=os.path.join(work, f"mask_{tag}.npy"), **kw), into)
         stats = json.loads(json.dumps(engine.last_stats))
         mask = np.asarray(mask)
         n = len(np.unique(mask)) - 1
@@ -706,7 +747,6 @@ def run_host_engine(results: list):
               f"{e2e:.3f} s (run_inference), peak_device_memory_bytes "
               f"{torch.cuda.max_memory_allocated()}", flush=True)
         print(f"host engine [{tag}] stages: {json.dumps(stats)}", flush=True)
-        print(f"host engine [{tag}] launches: {json.dumps(counts)}", flush=True)
         _need(stats["engine"] == "host", f"[{tag}] ran the {stats['engine']} engine")
         _need(counts["propagate"] == stats["phase2"]["cc_rounds"] > 0,
               f"[{tag}] propagate launches {counts['propagate']} against "
@@ -714,7 +754,7 @@ def run_host_engine(results: list):
         return mask, counts, stats
 
     # 1. defaults: auto -> host (256^3), store, the dilation probe on 4 tiles
-    mask, counts, stats = run("defaults")
+    mask, counts, stats = run("defaults", results)
     forwards = 4 + stats["phase1"]["tiles"]
     for name, k in per_forward.items():
         _need(counts[name] == k * forwards,
@@ -723,8 +763,6 @@ def run_host_engine(results: list):
     default_mask = mask
     _need(0.8 * n_expected <= n <= n_expected + 4,
           f"n_instances {n} outside [0.8*{n_expected}, {n_expected}+4]")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     knobs = json.load(open(os.path.join(work, "phantom_skoots_phase1.json")))
 
     # 2. the phase-1 cache: no forward, the same mask
@@ -812,22 +850,11 @@ def run_slice(results: list):
         cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0,
         device=dev,
     )
-    kernels = _launch_counters()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
-    try:
-        t0 = time.time()
-        inst = run(volume, mean, std)
-        torch.cuda.synchronize()
-        e2e = time.time() - t0
-    finally:
-        prop_mod.propagate_ref = saved
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    inst, counts, e2e = _drive("inference", lambda: run(volume, mean, std), results)
     # the run's own peaks, over the phantom and the model it was given:
     # allocated, and reserved (what the card must have free)
     peak = torch.cuda.max_memory_allocated() - base
@@ -840,11 +867,8 @@ def run_slice(results: list):
     print(f"n_instances {n_instances} n_expected {n_expected}", flush=True)
     print(f"cc_rounds {run.last_cc_rounds} cc_converged {run.last_cc_converged}",
           flush=True)
-    print(f"inference launches {json.dumps(counts)}", flush=True)
     print(f"peak_device_memory_bytes {peak}, reserved {reserved} (over the {base} B "
           "allocated before the run: the f32 phantom and the model)", flush=True)
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     for name, n in counts.items():
         _need(n > 0, f"kernel {name} was not launched on the main path")
     n_tiles = int(np.prod([-(-v // t) for v, t in zip(shape, TILE)]))
@@ -948,22 +972,11 @@ def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
     torch.cuda.empty_cache()
     tile_bytes = engine._forward_tile_bytes(model, [TILE, ASSIGN_TILE], 0.8, 0.8, 1, 2,
                                             dev)
-    kernels = _launch_counters()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
-    try:
-        t0 = time.time()
-        inst = run(vol_u8, mean, std)
-        torch.cuda.synchronize()
-        e2e = time.time() - t0
-    finally:
-        prop_mod.propagate_ref = saved
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    inst, counts, e2e = _drive("thrifty", lambda: run(vol_u8, mean, std), results)
     peak = torch.cuda.max_memory_allocated() - base
     reserved = torch.cuda.max_memory_reserved() - base_reserved
     labels = widen_u16(inst)
@@ -976,16 +989,13 @@ def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
     print(f"thrifty n_instances {n_instances} n_expected {n_expected} components "
           f"{run.last_count} mask {inst.dtype} cc_rounds {run.last_cc_rounds} "
           f"cc_converged {run.last_cc_converged}", flush=True)
-    print(f"thrifty launches {json.dumps(counts)} tile plan {json.dumps(run.tile_plan)}",
-          flush=True)
+    print(f"thrifty tile plan {json.dumps(run.tile_plan)}", flush=True)
     print(f"thrifty peak_device_memory_bytes {peak}, reserved {reserved} (over {base} B "
           f"allocated before); one forward tile reserves {tile_bytes} B; beyond it "
           f"{(reserved - tile_bytes) / vox:.3f} B a voxel reserved (estimate 13), "
           f"estimate {est} B; chunked (f32 phantom on the card) reserved {chunked_peak}, "
           f"{(chunked_peak - tile_bytes) / vox:.3f} B a voxel beyond the tile (estimate "
           f"24), estimate {est_chunked} B", flush=True)
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     _need(reserved <= est, f"thrifty reserved {reserved} B over its estimate {est} B")
     _need(chunked_peak <= est_chunked,
           f"chunked reserved {chunked_peak} B over its estimate {est_chunked} B")
@@ -1092,30 +1102,16 @@ def run_thrifty_engine(results: list, vol_u8, tile_bytes: int) -> None:
     np.save(path, vol_u8)
     n_expected = tube_segments(VOLUME, 48, radius=5.0, seed=7)[2]
     dev = torch.device("cuda")
-    kernels = _launch_counters()
 
     def run(tag, engine_impl, measured_tiles):
-        for fn in kernels.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
-        try:
-            t0 = time.time()
-            mask = engine.run_inference(path, ckpt, engine_impl=engine_impl,
-                                        output_path=os.path.join(work, f"mask_{tag}.npy"))
-            torch.cuda.synchronize()
-            e2e = time.time() - t0
-        finally:
-            prop_mod.propagate_ref = saved
-        counts = {name: fn.launches for name, fn in kernels.items()}
+        mask, counts, e2e = _drive(f"run_inference [{tag}]", lambda: engine.run_inference(
+            path, ckpt, engine_impl=engine_impl,
+            output_path=os.path.join(work, f"mask_{tag}.npy")), results)
         with open(os.path.join(work, "phantom_skoots_phases.json")) as f:
             stats = json.load(f)
         n = len(np.unique(mask)) - 1
         print(f"run_inference [{tag}]: {n} instances of {n_expected} placed, e2e "
-              f"{e2e:.3f} s; phases {json.dumps(stats)}; launches {json.dumps(counts)}",
-              flush=True)
-        for r in results:
-            r["launches"] += counts.get(r["name"], 0)
+              f"{e2e:.3f} s; phases {json.dumps(stats)}", flush=True)
         _need(stats["engine"] == "device-thrifty",
               f"[{tag}] ran the {stats['engine']} engine, not device-thrifty")
         forwards = 4 + measured_tiles + sum(stats["tile_plan"].values())
@@ -1164,28 +1160,15 @@ def check_sparse_probe(results: list, ckpt, model, volume) -> None:
     function on the CPU with the plain versions and the checkpoint's dtype
     on a block three tubes cross: the same histogram bin, or None on
     both."""
-    import torch
-
     from skoots_tpu_torch.infer import engine
     from skoots_tpu_torch.infer.autoknobs import calibrate_semantic_threshold_from_histogram
     from skoots_tpu_torch.models import model_from_checkpoint
 
     mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
     vol = volume.cpu().numpy()[..., None]
-    kernels = _launch_counters()
-    torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.time()
-    thr = engine._probe_semantic_threshold(model, mean, std, vol, PROBE_TILE,
-                                           PROBE_OVERLAP, "cuda")
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    counts = {name: fn.launches for name, fn in kernels.items()}
-    print(f"sparse probe (card): threshold {thr} in {dt:.3f} s, launches "
-          f"{json.dumps(counts)}", flush=True)
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
+    thr, counts, _ = _drive("sparse probe (card)", lambda: engine._probe_semantic_threshold(
+        model, mean, std, vol, PROBE_TILE, PROBE_OVERLAP, "cuda"), results)
+    print(f"sparse probe (card): threshold {thr}", flush=True)
     for name, k in FORWARD_KERNELS_PER_TILE.items():
         _need(counts[name] == 4 * k,
               f"probe {name}: {counts[name]} launches, expected {k} x 4 tiles")
@@ -1519,14 +1502,9 @@ def run_train_slice(results: list) -> list:
         for host_batch in host_pf(epoch):
             yield augment(host_batch, g)
 
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.time()
-    state = train(cfg, data_iter, dev, dataset_mean=mean, dataset_std=std,
-                  object_radius=radius)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    state, counts, wall = _drive("train()", lambda: train(
+        cfg, data_iter, dev, dataset_mean=mean, dataset_std=std, object_radius=radius),
+        results, kernels)
     n = state.step
     # per step: 11 depthwise convs forward (stem + 10 blocks) and 10 input
     # gradients (not the stem's), 11 weight gradients, 10 block tails,
@@ -1541,8 +1519,6 @@ def run_train_slice(results: list) -> list:
     for name, c in counts.items():
         _need(c > 0, f"kernel {name} was not launched by train()")
         _need(c == n * per_step[name], f"{name}: {c} launches, expected {n * per_step[name]}")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
 
     ckpt = load_checkpoint(state.save_name)
     loaded = model_from_checkpoint(ckpt, device=dev)
@@ -1577,7 +1553,6 @@ def run_tif(results: list, vol, npy_mask) -> None:
 
     from skoots_tpu_torch import cli
     from skoots_tpu_torch.infer import engine
-    from skoots_tpu_torch.kernels import propagate as prop_mod
     from skoots_tpu_torch.utils.io import imread, imsave
 
     work = os.path.join(ROOT, "build", "tif_smoke")
@@ -1597,19 +1572,8 @@ def run_tif(results: list, vol, npy_mask) -> None:
     _need(back.dtype == vol.dtype and np.array_equal(back, vol), "the tif read back differs")
 
     ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
-    kernels = _launch_counters()
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
-    try:
-        t0 = time.time()
-        rc = cli.main(["--image", tif, "--pretrained-checkpoint", ckpt, "--log", "1"])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    finally:
-        prop_mod.propagate_ref = saved
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    rc, counts, wall = _drive("tif: skoots-torch --image phantom.tif", lambda: cli.main(
+        ["--image", tif, "--pretrained-checkpoint", ckpt, "--log", "1"]), results)
     stats = json.loads(json.dumps(engine.last_stats))
     t0 = time.time()
     mask = imread(os.path.join(work, "phantom_instance_mask.tif"))
@@ -1620,15 +1584,12 @@ def run_tif(results: list, vol, npy_mask) -> None:
           f"engine {stats['engine']}, mask read {mask.nbytes / 1e6 / t_mask:.1f} MB/s "
           f"({mask.dtype}), {'equal to' if same else 'DIFFERENT from'} the .npy run's",
           flush=True)
-    print(f"tif launches: {json.dumps(counts)}", flush=True)
     _need(rc == 0 and same, "the tif run's mask differs from the .npy run's")
     forwards = 4 + stats["phase1"]["tiles"]
     for name, k in FORWARD_KERNELS_PER_TILE.items():
         _need(counts[name] == k * forwards,
               f"tif {name}: {counts[name]} launches, expected {k} x {forwards}")
     _need(counts["propagate"] == stats["phase2"]["cc_rounds"] > 0, "tif: propagate")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -1693,19 +1654,21 @@ def run_train_variants(results: list, records) -> str:
         fixed = augment(host_batches[0], gen)
         with torch.no_grad():
             first = float(step.loss_fn(fixed, 0)[0])
-        for fn in kernels.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        times = []
-        for i in range(8):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            augment(host_batches[i], gen)
-            a.record()
-            step(fixed, 0)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        counts = {name: fn.launches for name, fn in kernels.items()}
+
+        def eight_steps():
+            times = []
+            for i in range(8):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                augment(host_batches[i], gen)
+                a.record()
+                step(fixed, 0)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            return times
+
+        times, counts, _ = _drive(f"train variant {tag}", eight_steps, results, kernels)
         with torch.no_grad():
             final = float(step.loss_fn(fixed, 0)[0])
         unet = update.get("ARCHITECTURE") == "bism_unet"
@@ -1713,14 +1676,11 @@ def run_train_variants(results: list, records) -> str:
                     "mlp_block_tail": 0, "ln_head": 0 if unet else 1, "upsample2x": 2,
                     "bake_skeleton": bsz}
         print(f"train variant {tag}: loss {first:.6f} -> {final:.6f} over 8 steps, step "
-              f"{float(np.median(times[1:])):.3f} ms (warm median of 7), launches "
-              f"{json.dumps(counts)}", flush=True)
+              f"{float(np.median(times[1:])):.3f} ms (warm median of 7)", flush=True)
         _need(np.isfinite(final) and final < first, f"{tag}: the loss did not fall")
         for name, c in counts.items():
             _need(c == 8 * per_step[name],
                   f"{tag} {name}: {c} launches, expected {8 * per_step[name]}")
-        for r in results:
-            r["launches"] += counts.get(r["name"], 0)
         if unet:
             unet_ckpt = os.path.join(work, "unet.skoots")
             save_checkpoint(unet_ckpt, cfg, model.state_dict(),
@@ -1829,25 +1789,12 @@ def run_unet_inference(results: list, ckpt_path: str) -> None:
         vector_scale=tuple(ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"]),
         embed_iterations=10, embed_exit_fraction=1e-3, embed_compact_div=16,
         cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0, device=dev)
-    kernels = _launch_counters()
-    torch.cuda.synchronize()
-    for fn in kernels.values():
-        fn.launches = 0
-    saved, prop_mod.propagate_ref = prop_mod.propagate_ref, _no_plain_propagation
-    try:
-        t0 = time.time()
-        inst = run(volume, mean, std)
-        torch.cuda.synchronize()
-        e2e = time.time() - t0
-    finally:
-        prop_mod.propagate_ref = saved
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    inst, counts, e2e = _drive("unet3d chunked", lambda: run(volume, mean, std), results)
     n_tiles = int(np.prod([-(-v // t) for v, t in zip(VOLUME, TILE)]))
     n = int((torch.unique(inst) > 0).sum())
     print(f"unet3d chunked: phases {json.dumps(run.last_phase_s)} e2e {e2e:.3f} s, "
           f"{n} instances (8 training steps: not held to the phantom's), cc_rounds "
           f"{run.last_cc_rounds}, one forward tile reserves {tile_bytes} B", flush=True)
-    print(f"unet3d launches {json.dumps(counts)}", flush=True)
     _need(tuple(inst.shape) == VOLUME, f"unet3d output {tuple(inst.shape)}")
     _need(counts["upsample2x"] == 2 * n_tiles,
           f"unet3d upsample2x: {counts['upsample2x']} launches, expected 2 x {n_tiles}")
@@ -1856,8 +1803,6 @@ def run_unet_inference(results: list, ckpt_path: str) -> None:
     _need(counts["propagate"] == run.last_cc_rounds * len(prop_mod.launch_plan(192)),
           "unet3d: propagate launches")
     _need(tile_bytes > 0, "no forward tile memory measured")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     block = volume[192:320, 192:320, 192:256].contiguous()
     x = ((block - mean) / std)[None, ..., None]
     with torch.no_grad():
@@ -1920,7 +1865,6 @@ def run_experimental(results: list, vol, n_default: int, n_expected: int) -> Non
     from skoots_tpu_torch import cli
     from skoots_tpu_torch.experimental import eval as experimental_eval
     from skoots_tpu_torch.infer import engine
-    from skoots_tpu_torch.kernels import propagate as prop_mod
 
     work = os.path.join(ROOT, "build", "experimental_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1935,21 +1879,13 @@ def run_experimental(results: list, vol, n_default: int, n_expected: int) -> Non
         seen.update(kwargs)
         return real(*args, **kwargs)
 
-    kernels = _launch_counters()
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    saved = prop_mod.propagate_ref, experimental_eval.run_inference
-    prop_mod.propagate_ref, experimental_eval.run_inference = _no_plain_propagation, recording
+    experimental_eval.run_inference = recording
     try:
-        t0 = time.time()
-        rc = cli.main(["--image", path, "--pretrained-checkpoint", ckpt, "--log", "1",
-                       "--experimental"])
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        rc, counts, wall = _drive("--experimental", lambda: cli.main(
+            ["--image", path, "--pretrained-checkpoint", ckpt, "--log", "1",
+             "--experimental"]), results)
     finally:
-        prop_mod.propagate_ref, experimental_eval.run_inference = saved
-    counts = {name: fn.launches for name, fn in kernels.items()}
+        experimental_eval.run_inference = real
     stats = json.loads(json.dumps(engine.last_stats))
     mask = np.load(os.path.join(work, "phantom_instance_mask.npy"))
     n = len(np.unique(mask)) - 1
@@ -1958,7 +1894,6 @@ def run_experimental(results: list, vol, n_default: int, n_expected: int) -> Non
     print(f"--experimental: rc {rc}, {n} instances (default knobs: {n_default}; "
           f"{n_expected} tubes placed) in {wall:.3f} s, knobs in effect {json.dumps(knobs)}, "
           f"engine {stats['engine']}", flush=True)
-    print(f"--experimental launches: {json.dumps(counts)}", flush=True)
     _need(rc == 0 and n >= 1, f"--experimental: rc {rc}, {n} instances")
     _need(knobs == {"prob_threshold": 0.5, "dilation_3d": 0, "dilation_2d": 3,
                     "embed_iterations": 10, "embed_decay": 0.95},
@@ -1971,8 +1906,6 @@ def run_experimental(results: list, vol, n_default: int, n_expected: int) -> Non
     _need(counts["propagate"] == stats["phase2"]["cc_rounds"] > 0,
           f"--experimental propagate: {counts['propagate']} launches against "
           f"{stats['phase2']['cc_rounds']} CC rounds")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -2140,18 +2073,12 @@ def run_sparse_train(results: list, vols) -> str:
     sparse_log.addHandler(handler)
     level = sparse_log.level
     sparse_log.setLevel(logging.INFO)
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
     try:
-        t0 = time.time()
-        state = train_sparse(cfg, steps_per_epoch=SPARSE_STEPS, device=dev, records=records)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        state, counts, wall = _drive("train_sparse", lambda: train_sparse(
+            cfg, steps_per_epoch=SPARSE_STEPS, device=dev, records=records), results, kernels)
     finally:
         sparse_log.removeHandler(handler)
         sparse_log.setLevel(level)
-    counts = {name: fn.launches for name, fn in kernels.items()}
     n, fwd = state.step, state.calibration_forwards
     per_step = {"dwconv3d": 21, "dwconv3d_wgrad": 11, "mlp_block_tail": 10, "ln_head": 1,
                 "upsample2x": 2, "bake_skeleton": t["TRAIN_BATCH_SIZE"]}
@@ -2166,8 +2093,6 @@ def run_sparse_train(results: list, vols) -> str:
     for name, c in counts.items():
         want = n * per_step[name] + fwd * per_forward[name]
         _need(c == want, f"train_sparse {name}: {c} launches, expected {want}")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
 
     ckpt = load_checkpoint(state.save_name)
     extra = ckpt["extra"]
@@ -2213,19 +2138,12 @@ def run_sparse_inference(results: list, ckpt_path: str, vol) -> None:
     engine_log.addHandler(handler)
     level = engine_log.level
     engine_log.setLevel(logging.INFO)
-    kernels = _launch_counters()
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
     try:
-        t0 = time.time()
-        mask = engine.run_inference(path, ckpt_path, output_path=os.path.join(work, "m.npy"))
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        mask, counts, wall = _drive("sparse checkpoint inference", lambda: engine.run_inference(
+            path, ckpt_path, output_path=os.path.join(work, "m.npy")), results)
     finally:
         engine_log.removeHandler(handler)
         engine_log.setLevel(level)
-    counts = {name: fn.launches for name, fn in kernels.items()}
     source = ("probe" if any("volume-calibrated" in g for g in gates) else
               "calibrated" if any("checkpoint-calibrated" in g for g in gates) else "default")
     n = len(np.unique(np.asarray(mask))) - 1
@@ -2236,9 +2154,283 @@ def run_sparse_inference(results: list, ckpt_path: str, vol) -> None:
     _need(len(gates) == 1 and forwards >= 1
           and all(counts[k] == v * forwards for k, v in FORWARD_KERNELS_PER_TILE.items()),
           f"sparse inference: gates {gates}, launches {counts}")
-    for r in results:
-        r["launches"] += counts.get(r["name"], 0)
     shutil.rmtree(os.path.join(ROOT, "build", "sparse_smoke"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# the per-slice mode's oracle: the accuracy campaign's aniso val phantom
+# (make_tubes, radius 4, 10 voxels apart), scale (12, 12, 6), N = 10
+ANISO_TUBES = dict(shape=(192, 192, 32), n_tubes=24, radius=4, seed=999,
+                   min_separation=10.0)
+ANISO_SCALE, ANISO_N = (12.0, 12.0, 6.0), 10
+
+
+def run_cc_variants(results: list, ckpt, model, volume, chunked, chunked_run,
+                    vol_u8) -> None:
+    """The CC variants on the main path: ``make_chunked_pipeline`` on the
+    512^3 bench phantom with ``bench.py``'s knobs three ways -- (a)
+    ``cc_impl="sparse"``, (b) ``SKOOTS_CC_IMPL=sparse``, (c)
+    ``cc_scans_per_round=1`` -- each mask equal to the dense run's voxel
+    for voxel. (a) and (b) try the sparse CC at JAX's capacity and keep its
+    labels when ``ok``, else run the dense CC (JAX's rule; the engine that
+    ran must agree with the sparse CC's points, edges and rounds, and the
+    propagate launches with that engine); (c) launches propagate
+    ``len(launch_plan(192))`` times a round. Then (d) the same without the
+    skeleton's dilation (a thin skeleton, the point cloud the sparse CC is
+    sized for), sparse against dense: the sparse engine must label it,
+    with no propagate launch. Then the thrifty pipeline under
+    ``SKOOTS_CC_IMPL=sparse``, which keeps the dense CC (as the JAX
+    package's) and its default mask."""
+    import torch
+
+    from skoots_tpu_torch.infer.device_pipeline import (make_chunked_pipeline,
+                                                        make_thrifty_pipeline)
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.ops.flood_fill import widen_u16
+
+    dev = torch.device("cuda")
+    mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
+    knobs = dict(crop=TILE, overlap=(0, 0, 0), vector_scale=tuple(
+                     ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"]),
+                 embed_iterations=10, embed_exit_fraction=1e-3, embed_compact_div=16,
+                 cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0,
+                 device=dev)
+    per_round = len(prop_mod.launch_plan(192))
+    n_tiles = int(np.prod([-(-v // t) for v, t in zip(VOLUME, TILE)]))
+    cc_n_max = max(1 << 14, (int(np.prod(VOLUME)) // 32 + 8191) // 8192 * 8192)
+    print(f"cc [dense] (the main path's run): 2-cc {chunked_run.last_phase_s['2-cc']} s, "
+          f"{chunked_run.last_cc_rounds} rounds", flush=True)
+
+    def chunked_variant(tag, ref, env=None, **kw):
+        if env:
+            os.environ["SKOOTS_CC_IMPL"] = env
+        try:
+            run = make_chunked_pipeline(model, VOLUME, assign_crop=(256, 256, 64),
+                                        **knobs, **kw)
+        finally:
+            os.environ.pop("SKOOTS_CC_IMPL", None)
+        inst, counts, dt = _drive(f"cc [{tag}]", lambda: run(volume, mean, std), results)
+        inst = inst.cpu()
+        same = ref is None or torch.equal(inst, ref)
+        print(f"cc [{tag}]: engine {run.last_cc_impl} (sparse CC: "
+              f"{json.dumps(run.last_sparse_cc)}, capacity {cc_n_max} points, "
+              f"{4 * cc_n_max} edges), 2-cc {run.last_phase_s['2-cc']} s, "
+              f"{run.last_cc_rounds} rounds, phases {json.dumps(run.last_phase_s)}, "
+              f"{int((torch.unique(inst) > 0).sum())} instances, mask "
+              f"{'equal to' if same else 'DIFFERENT from'} the dense run's", flush=True)
+        _need(same, f"cc [{tag}]: the mask differs from the dense run's")
+        _need(counts["dwconv3d"] == FORWARD_KERNELS_PER_TILE["dwconv3d"] * n_tiles,
+              f"cc [{tag}]: {counts['dwconv3d']} dwconv launches")
+        engine = run.last_cc_impl
+        _need(counts["propagate"] == (0 if engine == "sparse"
+                                      else run.last_cc_rounds * per_round),
+              f"cc [{tag}]: {counts['propagate']} propagates, {engine} CC, "
+              f"{run.last_cc_rounds} rounds")
+        sp = run.last_sparse_cc
+        if sp is not None:  # JAX's rule decides the engine
+            fits = sp["points"] <= cc_n_max and sp["edges"] <= 4 * cc_n_max
+            _need(engine == ("sparse" if sp["ok"] else "dense")
+                  and (sp["ok"] or not fits or sp["rounds"] == 32),
+                  f"cc [{tag}]: engine {engine} against the sparse CC's {sp}")
+        return run, inst
+
+    for tag, kw in (("cc_impl=sparse", dict(cc_impl="sparse")),
+                    ("SKOOTS_CC_IMPL=sparse", dict(env="sparse"))):
+        run, _ = chunked_variant(tag, chunked, **kw)
+        _need(run.last_sparse_cc is not None, f"cc [{tag}]: the sparse CC was not tried")
+    run, _ = chunked_variant("cc_scans_per_round=1", chunked, cc_scans_per_round=1)
+    _need(run.last_cc_impl == "dense" and run.last_cc_rounds > 0, "cc [scans]: no round")
+    thin = dict(dilation_3d=0, dilation_2d=0)
+    _, ref = chunked_variant("dense, no dilation", None, **thin)
+    run, _ = chunked_variant("cc_impl=sparse, no dilation", ref, cc_impl="sparse", **thin)
+    _need(run.last_cc_impl == "sparse",
+          f"cc [sparse, no dilation]: the sparse CC fell back ({run.last_sparse_cc})")
+    del run, ref
+    torch.cuda.empty_cache()
+
+    masks = []
+    for env in (None, "sparse"):
+        if env:
+            os.environ["SKOOTS_CC_IMPL"] = env
+        try:
+            run = make_thrifty_pipeline(model, VOLUME, assign_crop=ASSIGN_TILE, **knobs)
+        finally:
+            os.environ.pop("SKOOTS_CC_IMPL", None)
+        tag = f"thrifty [SKOOTS_CC_IMPL={env or 'unset'}]"
+        inst, counts, _ = _drive(tag, lambda: run(vol_u8, mean, std), results)
+        masks.append(widen_u16(inst).cpu())
+        print(f"{tag}: phases {json.dumps(run.last_phase_s)}, {run.last_cc_rounds} CC "
+              f"rounds, {run.last_count} components", flush=True)
+        _need(counts["propagate"] == run.last_cc_rounds * per_round > 0,
+              f"{tag}: {counts['propagate']} propagates, {run.last_cc_rounds} rounds")
+        del inst, run
+        torch.cuda.empty_cache()
+    _need(torch.equal(masks[0], masks[1]), "thrifty under SKOOTS_CC_IMPL=sparse: the mask "
+          "differs from its default one")
+    print("thrifty [SKOOTS_CC_IMPL=sparse]: mask equal to its default one", flush=True)
+
+
+def run_perslice_slice(results: list, vol, n_default: int) -> None:
+    """This slice's host-cell phases on the 256^3 phantom with the bench
+    checkpoint at full width:
+
+    1. ``run_perslice_inference`` on a copy without phase-1 buffers (the
+       host engine runs once, every forward kernel per forward of the host
+       cell), then again on the buffers it left (no forward): the masks
+       equal, propagate launched once per per-slice CC round (and per 3D CC
+       round in the first run); the assign / stitch seconds and the
+       instance count beside the 3D engine's;
+    2. ``perslice_segment`` on the card against the CPU's plain versions on
+       the same buffers, voxel for voxel; the propagate kernel against its
+       plain version at the per-slice layout ``[2Z - 1, X, Y]`` (one pass);
+    3. the host engine with ``use_cached_data``, by default and under
+       ``SKOOTS_CC_IMPL=sparse``: masks equal, the tiles each CC engine
+       labelled;
+    4. the oracle on the campaign's aniso val phantom: the bake kernel
+       against its plain version at ``perfect_prediction``'s inputs (0
+       values differing), ``perfect_prediction`` on the card (one bake
+       launch, counted from 0), ``perslice_segment`` at scale (12, 12, 6),
+       N = 10: 21 of 21 at IoU 0.5, no false positive."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.infer import engine, perslice
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel, bake_skeleton_ref
+    from skoots_tpu_torch.kernels.propagate import propagate, propagate_ref
+    from skoots_tpu_torch.ops.skeleton import pack_skeletons
+    from skoots_tpu_torch.tools.bench_propagate import sparse_bound_ms
+    from skoots_tpu_torch.utils.synthetic import make_tubes, perfect_prediction
+    from skoots_tpu_torch.validate.metrics import accuracies_from_iou, mask_iou
+
+    dev = torch.device("cuda")
+    ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    work = os.path.join(ROOT, "build", "perslice_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "phantom.npy")
+    np.save(path, vol)
+    stem = os.path.splitext(path)[0]
+
+    # 1. the per-slice mode from scratch, then on its cached buffers
+    first, counts, dt = _drive("perslice [from scratch]",
+                               lambda: perslice.run_perslice_inference(path, ckpt), results)
+    stats = json.loads(json.dumps(engine.last_stats))
+    rounds = perslice.perslice_label_components.last_rounds
+    split = dict(perslice.perslice_segment.last_phase_s)
+    forwards = 4 + stats["phase1"]["tiles"]
+    for name, k in FORWARD_KERNELS_PER_TILE.items():
+        _need(counts[name] == k * forwards,
+              f"perslice {name}: {counts[name]} launches, expected {k} x {forwards}")
+    _need(counts["propagate"] == stats["phase2"]["cc_rounds"] + rounds,
+          f"perslice propagate: {counts['propagate']} launches, expected "
+          f"{stats['phase2']['cc_rounds']} 3D + {rounds} per-slice CC rounds")
+    cached, counts, dt_cached = _drive(
+        "perslice [cached]", lambda: perslice.run_perslice_inference(path, ckpt), results)
+    split_cached = dict(perslice.perslice_segment.last_phase_s)
+    n = len(np.unique(first)) - 1
+    print(f"perslice: from scratch {dt:.3f} s (assign {split['assign']} s, stitch "
+          f"{split['stitch']} s), cached {dt_cached:.3f} s (assign {split_cached['assign']} "
+          f"s, stitch {split_cached['stitch']} s); {rounds} per-slice CC rounds; {n} "
+          f"instances (3D engine {n_default})", flush=True)
+    _need(all(counts[k] == 0 for k in FORWARD_KERNELS_PER_TILE),
+          "the cached per-slice run ran the model")
+    _need(counts["propagate"] == rounds > 0, f"perslice [cached]: {counts['propagate']} "
+          f"propagates, {rounds} rounds")
+    _need(np.array_equal(first, cached), "the cached per-slice mask differs")
+    _need(n >= 1, "the per-slice mode found no instance")
+
+    # 2. card vs CPU on the same buffers; propagate at the per-slice layout
+    bufs = [np.load(f"{stem}_skoots_{b}.npy", mmap_mode="r")
+            for b in ("vectors", "skeleton", "semantic")]
+    scale = tuple(load_checkpoint(ckpt)["cfg"]["SKOOTS"]["VECTOR_SCALING"])
+    card, _, _ = _drive("perslice_segment [card]",
+                        lambda: perslice.perslice_segment(*bufs, scale, 10), results)
+    t0 = time.time()
+    cpu = perslice.perslice_segment(*bufs, scale, 10, device="cpu")
+    print(f"perslice_segment [cpu]: {time.time() - t0:.3f} s "
+          f"({json.dumps(perslice.perslice_segment.last_phase_s)}); card "
+          f"{'equal to' if np.array_equal(card, cpu) else 'DIFFERENT from'} cpu", flush=True)
+    _need(np.array_equal(card, cpu) and np.array_equal(card, cached),
+          "perslice_segment on the card differs from the CPU's or the run's")
+    skel = torch.from_numpy(np.ascontiguousarray(np.moveaxis(bufs[1] > 0, 2, 0))).to(dev)
+    z, x, y = skel.shape
+    fg = torch.zeros((2 * z - 1, x, y), dtype=torch.uint8, device=dev)
+    fg[0::2] = skel
+    idx = torch.arange(1, fg.numel() + 1, dtype=torch.int32, device=dev).view(fg.shape)
+    lab = torch.where(fg > 0, idx, 0)
+    got, ref = propagate(lab, fg, passes=1), propagate_ref(lab, fg)
+    torch.cuda.synchronize()
+    err = float((got != ref).sum())
+    _record(results, "propagate", "skoots_tpu_torch/csrc/propagate.cu",
+            "skoots_tpu/kernels/propagate.py:93", err, err, 0.0,
+            f"voxels differing at the per-slice layout {tuple(fg.shape)}, 1 pass, "
+            f"{int(fg.sum())} fg voxels",
+            _time_ms(lambda: propagate(lab, fg, passes=1)),
+            _time_ms(lambda: propagate_ref(lab, fg)), (sparse_bound_ms(fg, 1), "bytes"))
+    del skel, fg, idx, lab, got, ref
+
+    # 3. the host engine's CC tiles, dense and sparse, from the cached buffers
+    masks = []
+    for env in (None, "sparse"):
+        if env:
+            os.environ["SKOOTS_CC_IMPL"] = env
+        tag = f"host engine [use_cached, SKOOTS_CC_IMPL={env or 'unset'}]"
+        try:
+            mask, counts, _ = _drive(tag, lambda: engine.run_inference(
+                path, ckpt, use_cached_data=True,
+                output_path=os.path.join(work, f"mask_{env}.npy")), results)
+        finally:
+            os.environ.pop("SKOOTS_CC_IMPL", None)
+        p2 = engine.last_stats["phase2"]
+        print(f"{tag}: phase 2 {p2['total_s']} s, tiles {json.dumps(p2['cc_tiles'])}, "
+              f"{p2['cc_rounds']} dense rounds, {len(np.unique(mask)) - 1} instances",
+              flush=True)
+        _need(counts["propagate"] == p2["cc_rounds"], f"{tag}: propagate launches")
+        _need(p2["cc_tiles"]["sparse"] > 0 if env else p2["cc_tiles"]["sparse"] == 0,
+              f"{tag}: tiles {p2['cc_tiles']}")
+        masks.append(np.asarray(mask))
+    _need(np.array_equal(masks[0], masks[1]),
+          "the host engine's sparse-CC mask differs from its default one")
+    print("host engine [SKOOTS_CC_IMPL=sparse]: mask equal to the default one", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 4. the oracle on the aniso val phantom: the bake against its plain
+    #    version at perfect_prediction's inputs (the phantom's labels and
+    #    packed skeletons, anisotropy 1, exact), then perfect_prediction and
+    #    the per-slice mode on the card
+    _, labels, skels = make_tubes(**ANISO_TUBES)
+    packed = pack_skeletons(skels, dev)
+    masks = torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int32)).to(dev)
+    pts, ids = packed.points, packed.ids
+    got = bake_skeleton_kernel(masks, pts, ids)
+    ref = bake_skeleton_ref(masks, pts, ids)
+    torch.cuda.synchronize()
+    diff = int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
+    _record(results, "bake_skeleton", "skoots_tpu_torch/csrc/bake.cu",
+            "skoots_tpu/kernels/bake.py:112", float(diff),
+            max(float((a - b).abs().max()) for a, b in zip(got, ref)), 0.0,
+            f"values differing at the aniso oracle {tuple(masks.shape)} P={pts.shape[0]}",
+            _time_ms(lambda: bake_skeleton_kernel(masks, pts, ids)),
+            _time_ms(lambda: bake_skeleton_ref(masks, pts, ids)),
+            bake_bound(masks, pts, ids, *got))
+    del packed, masks, pts, ids, got, ref
+    pred, counts, _ = _drive(
+        "perfect_prediction", lambda: perfect_prediction(labels, skels, ANISO_SCALE), results,
+        {**_launch_counters(), "bake_skeleton": bake_skeleton_kernel})
+    _need(counts["bake_skeleton"] == 1, f"perfect_prediction: {counts} launches")
+    out, counts, dt = _drive("perslice oracle", lambda: perslice.perslice_segment(
+        pred[..., 0:3], (pred[..., 3] > 0.5).astype(np.uint8),
+        (pred[..., 4] > 0.5).astype(np.uint8), ANISO_SCALE, ANISO_N), results)
+    tp, fp, fn = accuracies_from_iou(mask_iou(labels, out, device=dev).cpu(), 0.5)
+    n_gt = len(np.unique(labels)) - 1
+    print(f"perslice oracle (make_tubes {json.dumps(ANISO_TUBES)}, scale {ANISO_SCALE}, "
+          f"N = {ANISO_N}): {n_gt} ground-truth instances, {len(np.unique(out)) - 1} "
+          f"predicted, tp {tp} fp {fp} fn {fn} at IoU 0.5; "
+          f"{json.dumps(perslice.perslice_segment.last_phase_s)}", flush=True)
+    _need(n_gt == 21 and (tp, fp, fn) == (21, 0, 0),
+          f"the aniso oracle: {n_gt} instances, tp {tp} fp {fp} fn {fn}")
+    _need(counts["propagate"] == perslice.perslice_label_components.last_rounds > 0,
+          "the oracle's per-slice CC did not run on the propagate kernel")
     torch.cuda.empty_cache()
 
 
@@ -2278,6 +2470,7 @@ def main() -> int:
     vol_u8, tile_bytes = run_thrifty(results, ckpt, model, volume, chunked, chunked_peak,
                                      chunked_run)
     check_sparse_probe(results, ckpt, model, volume)
+    run_cc_variants(results, ckpt, model, volume, chunked, chunked_run, vol_u8)
     del ckpt, model, volume, chunked, chunked_run
     torch.cuda.empty_cache()
     run_thrifty_engine(results, vol_u8, tile_bytes)
@@ -2291,6 +2484,7 @@ def main() -> int:
     sparse_ckpt = run_sparse_train(results, run_skeletonize(
         [(r.image, r.masks) for r in records]))
     run_sparse_inference(results, sparse_ckpt, host_phantom)
+    run_perslice_slice(results, host_phantom, n_default)
     for r in results:
         r.pop("_largest")
     print(json.dumps({"kernels": results}), flush=True)

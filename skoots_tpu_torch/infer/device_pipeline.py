@@ -37,6 +37,7 @@ import torch
 from skoots_tpu_torch.ops.cropper import crop_origins
 from skoots_tpu_torch.ops.flood_fill import (
     _compact_labels,
+    label_components_sparse,
     make_label_components_stepped,
     widen_u16,
 )
@@ -136,17 +137,6 @@ def _tile_grid(volume_shape, crop, overlap):
     return crop, pads, padded, crop_origins(padded, crop, ov), interior
 
 
-def _stepped_cc(volume_shape, cc_impl, propagates, jumps, scans):
-    cc_impl = os.environ.get("SKOOTS_CC_IMPL", cc_impl)
-    if cc_impl not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"cc_impl {cc_impl!r}: only the dense propagate engine is ported "
-            "(see ROADMAP.md)")
-    return make_label_components_stepped(
-        volume_shape, rounds_per_dispatch=1, propagates_per_round=propagates,
-        jumps_per_round=jumps, scans_per_round=scans)
-
-
 def _phase_clock(run, device):
     """Start ``run.last_phase_s``; returns ``mark(tag)``, which synchronises
     the device and records the seconds since the previous mark."""
@@ -235,11 +225,20 @@ def make_chunked_pipeline(
 
     Knobs are the JAX package's. ``embed_compact_div`` (with the semantic
     gate) selects the fg-compacted assignment; torch's ``nonzero`` needs no
-    capacity, so its value only switches the path on. ``tiles_per_dispatch``
+    capacity, so its value only switches the path on. ``cc_impl``
+    ``"sparse"`` (or env ``SKOOTS_CC_IMPL=sparse``) labels the mask with
+    :func:`label_components_sparse` (capacity ``cc_n_max``, JAX's rule) and
+    runs the dense stepped CC only when its ``ok`` is False; ``"auto"``
+    and ``"dense"`` run the dense one. ``cc_scans_per_round`` leads each
+    dense round with axis sweeps. ``tiles_per_dispatch``
     is accepted for signature parity: eager PyTorch has no compiled
     dispatch to chunk. ``run.last_phase_s`` holds the phase split of the
-    last call, ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC
-    telemetry, ``run.tile_plan`` the tiles of phase 1 and phase 3.
+    last call, ``run.last_cc_impl`` the CC engine that ran (and
+    ``run.last_sparse_cc`` the sparse CC's points, edges, rounds and ``ok``
+    when it was tried),
+    ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC
+    telemetry (for the sparse engine its union-find rounds), ``run.tile_plan``
+    the tiles of phase 1 and phase 3.
     """
     device = resolve_device(device)
     x, y, z = volume_shape
@@ -247,8 +246,11 @@ def make_chunked_pipeline(
         volume_shape, crop, overlap)
     cx, cy, cz = crop
     sem_thr = prob_threshold if semantic_threshold is None else semantic_threshold
-    stepped_cc = _stepped_cc((x, y, z), cc_impl, cc_propagates_per_round,
-                             cc_jumps_per_round, cc_scans_per_round)
+    stepped_cc = make_label_components_stepped(
+        (x, y, z), rounds_per_dispatch=1, propagates_per_round=cc_propagates_per_round,
+        jumps_per_round=cc_jumps_per_round, scans_per_round=cc_scans_per_round)
+    use_sparse_cc = os.environ.get("SKOOTS_CC_IMPL", cc_impl) == "sparse"
+    cc_n_max = max(1 << 14, ((x * y * z) // 32 + 8191) // 8192 * 8192)
 
     a_crop, a_origins, compact_assign = _assign_plan(
         volume_shape, assign_crop or crop, vector_scale, embed_iterations,
@@ -278,10 +280,21 @@ def make_chunked_pipeline(
         vec_full = vec_buf[trim]
         skel_full = skel_buf[trim]
 
-        labels = stepped_cc(skel_full & 1, max_rounds=cc_rounds)
-        run.last_cc_impl = "dense"
-        run.last_cc_rounds = stepped_cc.last_rounds
-        run.last_cc_converged = stepped_cc.last_converged
+        sparse_ok = False
+        run.last_sparse_cc = None
+        if use_sparse_cc:
+            labels, sparse_ok = label_components_sparse(skel_full & 1, n_max=cc_n_max)
+            run.last_sparse_cc = dict(label_components_sparse.last_stats, ok=sparse_ok)
+        if sparse_ok:
+            run.last_cc_impl = "sparse"
+            run.last_cc_rounds = run.last_sparse_cc["rounds"]
+            run.last_cc_converged = True
+        else:
+            labels = None  # a failed sparse attempt's labels go before the dense CC
+            labels = stepped_cc(skel_full & 1, max_rounds=cc_rounds)
+            run.last_cc_impl = "dense"
+            run.last_cc_rounds = stepped_cc.last_rounds
+            run.last_cc_converged = stepped_cc.last_converged
         mark("2-cc")
 
         inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
@@ -301,6 +314,7 @@ def make_chunked_pipeline(
 
     run.last_phase_s = {}
     run.last_cc_impl = None
+    run.last_sparse_cc = None
     run.last_cc_rounds = None
     run.last_cc_converged = None
     run.tile_plan = {"forward": len(origins), "assign": len(a_origins)}
@@ -337,7 +351,6 @@ def make_thrifty_pipeline(
     cc_propagates_per_round: int = 128,
     cc_jumps_per_round: int = 1,
     cc_scans_per_round: int = 0,
-    cc_impl: str = "auto",
     device=None,
 ):
     """The device-thrifty whole-volume pipeline: about 13 B a voxel at its
@@ -354,7 +367,9 @@ def make_thrifty_pipeline(
     * On a card the allocator's cache is released at the start and after
       phases 1 and 2 (:func:`_release_cache`).
 
-    Knobs are :func:`make_chunked_pipeline`'s. Returns ``run(volume, mean,
+    Knobs are :func:`make_chunked_pipeline`'s but ``cc_impl``: as the JAX
+    package's, the CC is always the dense stepped one, whatever
+    ``SKOOTS_CC_IMPL`` says. Returns ``run(volume, mean,
     std) -> instance labels [X, Y, Z]``, already numbered 1..N: uint16 when
     N < 2^16 (:func:`widen_u16` widens it), else int32.
     ``run.last_count`` holds N, ``run.last_phase_s`` the phase split,
@@ -367,8 +382,9 @@ def make_thrifty_pipeline(
         volume_shape, crop, overlap)
     cx, cy, cz = crop
     sem_thr = prob_threshold if semantic_threshold is None else semantic_threshold
-    stepped_cc = _stepped_cc((x, y, z), cc_impl, cc_propagates_per_round,
-                             cc_jumps_per_round, cc_scans_per_round)
+    stepped_cc = make_label_components_stepped(
+        (x, y, z), rounds_per_dispatch=1, propagates_per_round=cc_propagates_per_round,
+        jumps_per_round=cc_jumps_per_round, scans_per_round=cc_scans_per_round)
 
     a_crop, a_origins, compact_assign = _assign_plan(
         volume_shape, assign_crop or crop, vector_scale, embed_iterations,

@@ -798,7 +798,8 @@ def run_inference(
         stats["phase2"] = {"total_s": round(time.time() - t2, 3),
                            "cc_crop": list(cc_crop),
                            "max_label": cc_info.get("max_label"),
-                           "cc_rounds": cc_info.get("rounds")}
+                           "cc_rounds": cc_info.get("rounds"),
+                           "cc_tiles": cc_info.get("cc_tiles")}
 
         # ------------------------------------------------------------ phase 3
         log.info("phase 3: instance assignment")

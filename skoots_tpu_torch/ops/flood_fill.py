@@ -14,10 +14,15 @@ maximum voxel.
   round (``flood_fill.py:38``);
 * :func:`make_label_components_stepped` -- the whole-volume schedule of the
   device pipeline (``flood_fill.py:296``), one host poll every
-  ``rounds_per_dispatch`` rounds;
+  ``rounds_per_dispatch`` rounds, each round optionally led by axis sweeps
+  (:func:`_axis_run_max`, ``flood_fill.py:267``);
+* :func:`label_components_sparse` -- the same labels from a union-find over
+  the foreground point cloud (``flood_fill.py:138``), plain torch, with an
+  ``ok`` flag that sends callers back to the dense engine;
 * :func:`efficient_flood_fill` -- the host engine's tiled CC: each tile
-  labelled on the device, compacted, offset into a disjoint id range, then
-  a host union-find over every seam plane (``flood_fill.py:516``);
+  labelled on the device (dense, or sparse with a dense fallback per tile),
+  compacted, offset into a disjoint id range, then a host union-find over
+  every seam plane (``flood_fill.py:516``);
 * the host-side finishers ``drop_small_instances`` and ``renumber`` and
   their in-place, chunked forms for memmaps (numpy, copied).
 
@@ -130,6 +135,37 @@ def label_components(
 label_components.last_rounds = None
 
 
+def _axis_run_max(labels: torch.Tensor, fg: torch.Tensor, axis: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """Each foreground voxel takes the max label of its whole contiguous run
+    along ``axis`` (``flood_fill.py:267``): a segmented max scan, forward and
+    reverse, in which every background voxel starts a segment (and counts
+    in it, as in JAX's scan; its label is 0 in a CC). A segment's index is
+    the running count of background voxels along the axis, which never
+    decreases, so ``torch.cummax`` of the int64 key ``(segment << 32) |
+    label`` is the segmented scan and its low 32 bits the label. Labels
+    must be non-negative int32. Works in slabs of about ``SLAB_VOXELS``
+    across another axis (the key, its cumulative maximum and indices take
+    24 B a voxel); writes into ``out`` when given (not ``labels``)."""
+    if out is None:
+        out = torch.empty_like(labels)
+    other = 0 if axis else 1
+    n = labels.shape[other]
+    per = max(1, SLAB_VOXELS // max(1, labels.numel() // max(n, 1)))
+
+    def scan(lab, f):
+        key = torch.cumsum(~f, axis, dtype=torch.int64).bitwise_left_shift_(32)
+        key.bitwise_or_(lab.to(torch.int64))
+        return torch.cummax(key, axis).values.bitwise_and_(0xFFFFFFFF)
+
+    for s in range(0, n, per):
+        lab = labels.narrow(other, s, min(per, n - s))
+        f = fg.narrow(other, s, min(per, n - s)) > 0
+        best = torch.maximum(scan(lab, f), scan(lab.flip(axis), f.flip(axis)).flip(axis))
+        out.narrow(other, s, min(per, n - s)).copy_(best.masked_fill_(~f, 0))
+    return out
+
+
 def make_label_components_stepped(
     shape: Tuple[int, int, int],
     rounds_per_dispatch: int = 4,
@@ -139,23 +175,36 @@ def make_label_components_stepped(
     scans_per_round: int = 0,
 ):
     """Connected components with one host poll of ``changed`` every
-    ``rounds_per_dispatch`` rounds. Returns ``label(binary, max_rounds) ->
-    int32 labels``; ``label.last_rounds`` / ``label.last_converged`` report
-    the rounds run and whether the fixpoint was reached."""
-    if scans_per_round:
-        raise NotImplementedError(
-            "the axis-scan CC schedule is not ported (see ROADMAP.md)")
+    ``rounds_per_dispatch`` rounds. A round runs ``scans_per_round`` sweeps
+    of :func:`_axis_run_max` along each axis (env ``SKOOTS_CC_SCANS``
+    overrides it), then ``propagates_per_round`` propagation passes (the
+    propagate kernel's ``len(launch_plan(propagates_per_round))`` launches
+    on a card), then ``jumps_per_round`` pointer jumps. Returns
+    ``label(binary, max_rounds) -> int32 labels``; ``label.last_rounds`` /
+    ``label.last_converged`` report the rounds run and whether the fixpoint
+    was reached."""
+    return _stepped_labeller(shape, rounds_per_dispatch, connectivity,
+                             propagates_per_round, jumps_per_round,
+                             int(os.environ.get("SKOOTS_CC_SCANS", scans_per_round)))
+
+
+def _stepped_labeller(shape, rounds_per_dispatch, connectivity, propagates_per_round,
+                      jumps_per_round, scans_per_round):
+    """:func:`make_label_components_stepped` with the schedule as given
+    (no ``SKOOTS_CC_SCANS``), for callers that stand in for the JAX
+    package's ``label_components``, which reads no such variable."""
     _check_connectivity(connectivity)
     if tuple(shape) and shape[0] * shape[1] * shape[2] >= 2**31:
         raise ValueError("volume too large for int32 voxel addresses")
 
     def label(binary: torch.Tensor, max_rounds: int = 64) -> torch.Tensor:
         # Two int32 volumes in all: the labels and one scratch buffer, which
-        # the propagation takes as its second ping-pong buffer and the jump
-        # as its output. Labels never decrease (a pass takes a maximum
-        # that includes the voxel itself, a jump reads the label of a voxel
-        # whose own label started at, and so is at least, the one read), so
-        # a round changed nothing exactly when their sum did not move.
+        # the propagation takes as its second ping-pong buffer and the sweeps
+        # and the jump as their output. Labels never decrease (a sweep or
+        # pass takes a maximum that includes the voxel itself, a jump reads
+        # the label of a voxel whose own label started at, and so is at
+        # least, the one read), so a round changed nothing exactly when
+        # their sum did not move.
         fg, labels = _init_labels(binary)
         scratch = torch.zeros_like(labels)
         total = _label_sum(labels)
@@ -163,6 +212,10 @@ def make_label_components_stepped(
         converged = False
         for _ in range(0, max_rounds, rounds_per_dispatch):
             for _ in range(rounds_per_dispatch):
+                for _ in range(scans_per_round):
+                    for ax in range(3):
+                        _axis_run_max(labels, fg, ax, out=scratch)
+                        labels, scratch = scratch, labels
                 new = propagate(labels, fg, passes=propagates_per_round,
                                 connectivity=connectivity, scratch=scratch)
                 if new is scratch:
@@ -185,6 +238,100 @@ def make_label_components_stepped(
     label.last_rounds = None
     label.last_converged = None
     return label
+
+
+def _forward_offsets(connectivity: int):
+    if connectivity == 26:
+        return [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                for dz in (-1, 0, 1) if (dx, dy, dz) > (0, 0, 0)]
+    _check_connectivity(connectivity)
+    return [(1, 0, 0), (0, 1, 0), (0, 0, 1)]
+
+
+def label_components_sparse(binary: torch.Tensor, n_max: int,
+                            max_rounds: int = 32, connectivity: int = 26):
+    """Connected components of the foreground point cloud
+    (``flood_fill.py:138``), step for step as the JAX package's: the
+    ascending foreground indices (the first ``n_max``, padded with the
+    volume's size), the 13 (26-connectivity) or 3 (6) forward neighbours
+    of each found by binary search (a non-edge is a (0, 0) self-loop), the
+    edge list compacted to ``4 * n_max``, then pointer-jump union-find
+    rounds (hook to the max, two compressions) over the positions.
+
+    Returns ``(labels, ok)``: int32 ``[X, Y, Z]`` labels in
+    :func:`label_components`' convention (the raveled index + 1 of each
+    component's maximum voxel; bit-identical to it when ``ok``), and
+    ``ok``, a bool: False when the foreground overflowed ``n_max``, the
+    edges ``4 * n_max``, or the rounds ended before the fixpoint -- callers
+    then run the dense engine. One host poll a round;
+    ``label_components_sparse.last_stats`` holds the foreground points,
+    the edges found and the rounds run."""
+    x, y, z = binary.shape
+    total = x * y * z
+    if total >= 2**31:
+        raise ValueError("volume too large for int32 linear indexing")
+    offs = _forward_offsets(connectivity)
+    dev = binary.device
+    flat = (binary > 0).reshape(-1)
+    count = int(flat.sum())
+    found = torch.nonzero(flat).squeeze(1)[:n_max].to(torch.int32)
+    idx = torch.full((n_max,), total, dtype=torch.int32, device=dev)
+    idx[:found.numel()] = found
+    del found
+    valid = idx < total
+    cx = idx // (y * z)
+    cy = (idx // z) % y
+    cz = idx % z
+    pos = torch.arange(n_max, dtype=torch.int32, device=dev)
+    ea = torch.empty((len(offs), n_max), dtype=torch.int32, device=dev)
+    eb = torch.empty_like(ea)
+    for k, (dx, dy, dz) in enumerate(offs):
+        nx, ny, nz = cx + dx, cy + dy, cz + dz
+        inb = ((nx >= 0) & (nx < x) & (ny >= 0) & (ny < y) & (nz >= 0) & (nz < z)
+               & valid)
+        nkey = torch.where(inb, (nx * y + ny) * z + nz, -1)
+        p = torch.searchsorted(idx, nkey, out_int32=True).clamp_(0, n_max - 1)
+        match = inb & (idx.index_select(0, p) == nkey)
+        ea[k] = pos.masked_fill(~match, 0)
+        eb[k] = p.masked_fill_(~match, 0)
+    del cx, cy, cz
+    ea, eb = ea.view(-1), eb.view(-1)
+    m_max = 4 * n_max
+    em = (ea > 0) | (eb > 0)
+    edge_count = int(em.sum())
+    eidx = torch.zeros(m_max, dtype=torch.int64, device=dev)
+    sel = torch.nonzero(em).squeeze(1)[:m_max]
+    eidx[:sel.numel()] = sel
+    del em, sel
+    ea, eb = ea[eidx], eb[eidx]
+    del eidx
+
+    par = pos.clone()
+    changed = True
+    rounds = 0
+    for rounds in range(1, max_rounds + 1):
+        pa, pb = par.index_select(0, ea), par.index_select(0, eb)
+        lo, hi = torch.minimum(pa, pb).long(), torch.maximum(pa, pb)
+        del pa, pb
+        new = par.scatter_reduce(0, lo, hi, "amax")
+        del lo, hi
+        new = new.index_select(0, new)
+        new = new.index_select(0, new)
+        changed = bool((new != par).any())
+        par = new
+        if not changed:
+            break
+
+    out = torch.zeros(total, dtype=torch.int32, device=dev)
+    keep = idx[valid].long()
+    out[keep] = idx.index_select(0, par)[valid] + 1
+    ok = count <= n_max and edge_count <= m_max and not changed
+    label_components_sparse.last_stats = {"points": count, "edges": edge_count,
+                                          "rounds": rounds}
+    return out.view(x, y, z), ok
+
+
+label_components_sparse.last_stats = None
 
 
 def _seam_pairs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -309,16 +456,17 @@ def efficient_flood_fill(
     overflow int32. ``wire_thrift`` (default on; env ``SKOOTS_CC_WIRE=wide``
     turns it off): the binary tile crosses host -> device bit-packed when
     its Z is a multiple of 8, and a tile of fewer than 2^16 components
-    returns at 16 bits. ``info`` receives ``max_label`` (a bound on the
-    labels when compact, else None) and ``rounds`` (CC rounds summed over
-    the tiles; one propagation pass each). Returns the int32 labels.
+    returns at 16 bits. ``cc_impl`` (env ``SKOOTS_CC_IMPL``): ``"sparse"``
+    labels each tile with :func:`label_components_sparse` (capacity from
+    the crop, as the JAX package's) and falls back to the dense engine for
+    a tile whose ``ok`` is False; anything else runs the dense engine.
+    ``info`` receives ``max_label`` (a bound on the labels when compact,
+    else None), ``rounds`` (dense CC rounds summed over the tiles; one
+    propagation pass each) and ``cc_tiles`` (tiles labelled by each
+    engine). Returns the int32 labels.
     """
     device = torch.device(device)
-    cc_impl = os.environ.get("SKOOTS_CC_IMPL", cc_impl)
-    if cc_impl not in ("auto", "dense"):
-        raise NotImplementedError(
-            f"cc_impl {cc_impl!r}: the sparse point-cloud CC is not ported to "
-            "skoots_tpu_torch yet (see ROADMAP.md)")
+    use_sparse = os.environ.get("SKOOTS_CC_IMPL", cc_impl) == "sparse"
     spatial = tuple(skeleton.shape)
     crop = effective_crop_size(spatial, crop_size)
     origins = crop_origins(spatial, crop, (0, 0, 0))
@@ -332,10 +480,12 @@ def efficient_flood_fill(
     if compact is None:
         compact = wire_thrift or len(origins) * tile_span > 2**31 - 1
     pack_h2d = wire_thrift and crop[2] % 8 == 0
+    cc_n_max = max(1 << 14, (int(np.prod(crop)) // 32 + 8191) // 8192 * 8192)
 
     seams_per_axis: List[set] = [set(), set(), set()]
     next_label = 0  # running component count (compact mode only)
     rounds = 0
+    cc_tiles = {"sparse": 0, "dense": 0}
     with torch.no_grad():
         for t, origin in enumerate(origins):
             sl = tuple(slice(o, o + c) for o, c in zip(origin, crop))
@@ -344,8 +494,15 @@ def efficient_flood_fill(
                 binary = _unpack_bits_dev(torch.from_numpy(packed).to(device))
             else:
                 binary = torch.from_numpy(np.asarray(skeleton[sl]) > 0).to(device)
-            labeled = label_components(binary, max_rounds=max_rounds)
-            rounds += label_components.last_rounds
+            engine = "dense"
+            if use_sparse:
+                labeled, ok = label_components_sparse(binary, n_max=cc_n_max)
+                if ok:
+                    engine = "sparse"
+            if engine == "dense":
+                labeled = label_components(binary, max_rounds=max_rounds)
+                rounds += label_components.last_rounds
+            cc_tiles[engine] += 1
             if compact:
                 labeled, c = _compact_labels(labeled)
                 if wire_thrift and c < 2**16:
@@ -389,6 +546,7 @@ def efficient_flood_fill(
         # seam merges only lower labels, so the pre-merge count bounds them
         info["max_label"] = next_label if compact else None
         info["rounds"] = rounds
+        info["cc_tiles"] = cc_tiles
     if relabel_sequential:
         renumber_inplace(out)
     return out

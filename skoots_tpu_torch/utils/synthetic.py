@@ -1,10 +1,13 @@
-"""Synthetic tube phantoms (port of ``skoots_tpu/utils/synthetic.py``).
+"""Synthetic phantoms (port of ``skoots_tpu/utils/synthetic.py``).
 
-``make_tubes`` (numpy, copied) makes a small training volume with its
-instance masks and skeletons; ``tube_segments`` (numpy, copied) places
-straight, well-separated tube segments on the host; ``render_tubes``
-rasterises them on the device in torch, so a 512^3 phantom never exists on
-the host.
+``make_tubes`` and ``make_blobs`` (numpy, copied) make small volumes with
+their instance masks and skeletons, ``apply_em_realism`` (numpy and scipy,
+copied) degrades a clean phantom's image as EM is degraded;
+``tube_segments`` (numpy, copied) places straight, well-separated tube
+segments on the host and ``render_tubes`` rasterises them on the device in
+torch, so a 512^3 phantom never exists on the host; ``perfect_prediction``
+fabricates the ideal network output of a labelled volume with the port's
+bake.
 """
 
 from __future__ import annotations
@@ -22,27 +25,63 @@ def make_tubes(
     n_tubes: int = 4,
     radius: int = 5,
     seed: int = 101196,
+    min_separation: float | None = None,
 ) -> Tuple[np.ndarray, np.ndarray, Dict[int, np.ndarray]]:
     """Random smooth tubes: ``(image u8 [X, Y, Z], labels int32 [X, Y, Z],
     skeletons {id: [M, 3] f32})``, the same arrays as the JAX package's
-    ``make_tubes`` for the same arguments (tubes may touch)."""
+    ``make_tubes`` for the same arguments. ``min_separation``
+    (centreline to centreline, voxels) redraws a tube up to 30 times until
+    it keeps that distance from the tubes placed, and leaves it out after
+    that; ``None`` lets tubes touch."""
     rng = np.random.default_rng(seed)
     x, y, z = shape
     labels = np.zeros(shape, np.int32)
     skeletons: Dict[int, np.ndarray] = {}
 
-    xx, yy, zz = np.meshgrid(np.arange(x), np.arange(y), np.arange(z), indexing="ij")
+    xx, yy, zz = np.meshgrid(
+        np.arange(x), np.arange(y), np.arange(z), indexing="ij"
+    )
+    kept_paths = []
     for tid in range(1, n_tubes + 1):
+        # random smooth path along a random principal direction
         n_pts = max(x, y) // 2
         t = np.linspace(0, 1, n_pts)
-        start = rng.uniform([radius + 1] * 3, [x - radius - 1, y - radius - 1, z - 2])
-        end = rng.uniform([radius + 1] * 3, [x - radius - 1, y - radius - 1, z - 2])
-        wig = rng.normal(0, 2.0, (3, 3))
-        path = (start[None, :] * (1 - t[:, None]) + end[None, :] * t[:, None]
-                + np.stack([np.sin(t * np.pi * (k + 1)) for k in range(3)], 1) @ wig)
-        path[:, 0] = np.clip(path[:, 0], 1, x - 2)
-        path[:, 1] = np.clip(path[:, 1], 1, y - 2)
-        path[:, 2] = np.clip(path[:, 2], 1, z - 2)
+        path = None
+        for _attempt in range(30):
+            start = rng.uniform(
+                [radius + 1] * 3, [x - radius - 1, y - radius - 1, z - 2]
+            )
+            end = rng.uniform(
+                [radius + 1] * 3, [x - radius - 1, y - radius - 1, z - 2]
+            )
+            wig = rng.normal(0, 2.0, (3, 3))
+            cand = (
+                start[None, :] * (1 - t[:, None])
+                + end[None, :] * t[:, None]
+                + np.stack(
+                    [np.sin(t * np.pi * (k + 1)) for k in range(3)], 1
+                ) @ wig
+            )
+            cand[:, 0] = np.clip(cand[:, 0], 1, x - 2)
+            cand[:, 1] = np.clip(cand[:, 1], 1, y - 2)
+            cand[:, 2] = np.clip(cand[:, 2], 1, z - 2)
+            if min_separation is None or not kept_paths:
+                path = cand
+                break
+            d = min(
+                float(
+                    np.sqrt(
+                        ((cand[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+                    ).min()
+                )
+                for p in kept_paths
+            )
+            if d >= min_separation:
+                path = cand
+                break
+        if path is None:
+            continue  # could not place without touching; fewer tubes is fine
+        kept_paths.append(path)
         skeletons[tid] = path.astype(np.float32)
 
         # paint the tube: distance to the polyline under z-anisotropy
@@ -50,12 +89,159 @@ def make_tubes(
         for p in path[:: max(1, n_pts // 32)]:
             d2 = (xx - p[0]) ** 2 + (yy - p[1]) ** 2 + ((zz - p[2]) * 3.0) ** 2
             np.minimum(d2min, d2, out=d2min)
-        labels[(d2min <= radius**2) & (labels == 0)] = tid
+        tube = d2min <= radius**2
+        labels[tube & (labels == 0)] = tid
 
     img = np.full(shape, 40.0)
     img += (labels > 0) * 120.0
     img += np.random.default_rng(seed + 1).normal(0, 12.0, shape)
-    return np.clip(img, 0, 255).astype(np.uint8), labels, skeletons
+    image = np.clip(img, 0, 255).astype(np.uint8)
+    return image, labels, skeletons
+
+
+def make_blobs(
+    shape: Tuple[int, int, int] = (128, 128, 32),
+    n_blobs: int = 12,
+    radius_range: Tuple[int, int] = (6, 14),
+    seed: int = 101196,
+    min_separation: float = 4.0,
+    elongation: float = 2.5,
+) -> Tuple[np.ndarray, np.ndarray, Dict[int, np.ndarray]]:
+    """Mito-like ellipsoidal blobs with random orientation and bumpy radius.
+
+    Unlike :func:`make_tubes`, blobs are compact (low aspect) — the regime
+    where skeletons degenerate toward centroids/short medial segments (the
+    reference's degenerate-object fallback, generate_skeletons.py:148-151).
+    Returns (image u8, labels int32, skeletons {id: [M, 3]}) where each
+    skeleton is the blob's medial segment (its long axis, shrunk to the
+    interior).
+    """
+    rng = np.random.default_rng(seed)
+    x, y, z = shape
+    labels = np.zeros(shape, np.int32)
+    skeletons: Dict[int, np.ndarray] = {}
+    xx, yy, zz = np.meshgrid(
+        np.arange(x), np.arange(y), np.arange(z), indexing="ij"
+    )
+    centers = []
+    tid = 0
+    for _ in range(n_blobs * 8):
+        if tid >= n_blobs:
+            break
+        r = float(rng.uniform(*radius_range))
+        c = rng.uniform(
+            [r + 1, r + 1, max(2.0, r / 3)],
+            [x - r - 1, y - r - 1, z - max(2.0, r / 3)],
+        )
+        if centers and min(
+            np.linalg.norm((c - np.asarray(o[0])) / np.asarray([1, 1, 1]))
+            - r - o[1]
+            for o in centers
+        ) < min_separation:
+            continue
+        centers.append((c, r))
+        tid += 1
+        # random orientation; squash z by the anisotropy factor 3
+        axis = rng.normal(size=3)
+        axis[2] *= 0.3
+        axis /= np.linalg.norm(axis) + 1e-9
+        lon = r * float(rng.uniform(1.2, elongation))
+        d = np.stack([xx - c[0], yy - c[1], (zz - c[2]) * 3.0], -1)
+        along = d @ axis
+        perp2 = (d * d).sum(-1) - along**2
+        bump = 1.0 + 0.25 * np.sin(xx * 0.7 + tid) * np.sin(yy * 0.9 - tid)
+        blob = (along / lon) ** 2 + perp2 / (r * bump) ** 2 <= 1.0
+        labels[blob & (labels == 0)] = tid
+        # medial segment along the long axis (interior 60%)
+        t = np.linspace(-0.6, 0.6, 9)[:, None]
+        pts = c[None, :] + t * lon * (axis * np.asarray([1.0, 1.0, 1 / 3.0]))[None, :]
+        pts[:, 0] = np.clip(pts[:, 0], 1, x - 2)
+        pts[:, 1] = np.clip(pts[:, 1], 1, y - 2)
+        pts[:, 2] = np.clip(pts[:, 2], 1, z - 2)
+        skeletons[tid] = pts.astype(np.float32)
+
+    img = np.full(shape, 40.0)
+    img += (labels > 0) * 120.0
+    img += np.random.default_rng(seed + 1).normal(0, 12.0, shape)
+    image = np.clip(img, 0, 255).astype(np.uint8)
+    return image, labels, skeletons
+
+
+def apply_em_realism(
+    image: np.ndarray,
+    labels: np.ndarray,
+    seed: int = 0,
+    texture: float = 0.35,
+    gradient: float = 0.25,
+    distractors: int = 10,
+    distractor_contrast: float = 0.55,
+    psf_sigma: Tuple[float, float, float] = (0.8, 0.8, 0.4),
+    noise: float = 6.0,
+) -> np.ndarray:
+    """EM-plausible degradation of a clean phantom image.
+
+    The clean generators paint uniform-intensity instances over uniform
+    background + white noise — far easier than real EM, whose organelles
+    are textured, unevenly illuminated, surrounded by membranes of similar
+    contrast, and blurred anisotropically by the imaging PSF. This applies,
+    in order: band-limited multiplicative texture (stronger inside
+    instances), a smooth illumination gradient along a random direction,
+    membrane-like distractor sheets in the BACKGROUND at
+    ``distractor_contrast`` of the fg-bg contrast (structures a naive
+    intensity threshold would swallow), an anisotropic gaussian PSF, and
+    fine noise. Labels are untouched — realism degrades the image, not the
+    ground truth. Returns the degraded u8 image.
+    """
+    from scipy import ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    img = np.asarray(image, np.float32).copy()
+    labels = np.asarray(labels)
+    fg = labels > 0
+    x, y, z = img.shape
+
+    # 1. band-limited texture, multiplicative (EM organelle interiors are
+    # granular; background cytosol less so)
+    t = ndi.gaussian_filter(
+        rng.normal(0, 1, img.shape).astype(np.float32), (3.0, 3.0, 1.5)
+    )
+    t /= max(float(t.std()), 1e-6)
+    img = img * (1.0 + np.where(fg, 0.5 * texture, 0.2 * texture) * t)
+
+    # 2. smooth illumination gradient along a random direction
+    d = rng.normal(size=3)
+    d /= np.linalg.norm(d) + 1e-9
+    xx, yy, zz = np.meshgrid(
+        np.arange(x, dtype=np.float32), np.arange(y, dtype=np.float32),
+        np.arange(z, dtype=np.float32), indexing="ij",
+    )
+    proj = xx * d[0] + yy * d[1] + zz * d[2]
+    proj = (proj - proj.min()) / (np.ptp(proj) + 1e-6) - 0.5
+    img = img * (1.0 + gradient * proj)
+
+    # 3. membrane-like distractor sheets (background only): gently curved
+    # thin surfaces at a contrast between bg and fg
+    fg_mean = float(img[fg].mean()) if fg.any() else 160.0
+    bg_mean = float(img[~fg].mean()) if (~fg).any() else 40.0
+    memb_val = bg_mean + distractor_contrast * (fg_mean - bg_mean)
+    for _ in range(distractors):
+        n = rng.normal(size=3)
+        n[2] *= 0.5  # sheets mostly cut across the thin axis shallowly
+        n /= np.linalg.norm(n) + 1e-9
+        amp = rng.uniform(2.0, 8.0)
+        wx, wy = rng.uniform(0.02, 0.08, 2)
+        phase = rng.uniform(0, 2 * np.pi)
+        s = (xx * n[0] + yy * n[1] + zz * n[2]
+             + amp * np.sin(wx * xx + wy * yy + phase))
+        c = rng.uniform(s.min(), s.max())
+        h = rng.uniform(0.8, 1.6)
+        sheet = (np.abs(s - c) < h) & ~fg
+        img[sheet] = memb_val
+
+    # 4. anisotropic PSF + 5. fine noise
+    img = ndi.gaussian_filter(img, psf_sigma)
+    img = img + rng.normal(0, noise, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def tube_segments(
@@ -150,3 +336,36 @@ def render_tubes(
                                                torch.tensor(bg, device=device))
     img += noise * torch.randn(shape, generator=gen, device=device)
     return img.clamp_(0.0, 255.0)
+
+
+def perfect_prediction(
+    labels: np.ndarray,
+    skeletons: Dict[int, np.ndarray],
+    vector_scale: Tuple[float, float, float] = (60.0, 60.0, 12.0),
+    device=None,
+) -> np.ndarray:
+    """The ideal 5-channel network output for a labelled volume, channels
+    last ``[X, Y, Z, 5]`` f32: vectors to the nearest own-instance skeleton
+    vertex over ``vector_scale`` (clipped to [-1, 1], 0 off the instances),
+    the skeleton channel a disk stamp of radius 2 (flanks 1) at every
+    skeleton vertex inside the instances, and the semantic channel the
+    foreground. The bake runs on ``device`` (by default the first CUDA
+    card, the bake kernel; asking for CUDA without one raises)."""
+    from skoots_tpu_torch.ops.skeleton import (bake_skeleton, pack_skeletons,
+                                               skeleton_to_mask)
+    from skoots_tpu_torch.ops.vec2embed import coordinate_mesh
+
+    device = resolve_device(device)
+    packed = pack_skeletons(skeletons, device)
+    lab = torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int32)).to(device)
+    with torch.no_grad():
+        baked = bake_skeleton(lab, packed, average=False)
+        diff = (baked - coordinate_mesh(labels.shape, device)).cpu().numpy()
+        skel_mask = skeleton_to_mask(packed, labels.shape, radius=2,
+                                     flank_radius=1).cpu().numpy()
+    vec = diff / np.asarray(vector_scale, np.float32)
+    vec = np.clip(vec, -1, 1) * (labels > 0)[..., None]
+    sem = (labels > 0).astype(np.float32)
+    return np.concatenate(
+        [vec, skel_mask[..., None] * sem[..., None], sem[..., None]], axis=-1
+    ).astype(np.float32)

@@ -127,7 +127,17 @@ def test_compact_and_unpack_helpers_match_jax():
     np.testing.assert_array_equal(tff._seam_pairs(a, b), jff._seam_pairs(a, b))
 
 
-def test_sparse_cc_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tff.efficient_flood_fill(np.zeros((8, 8, 8), np.uint8), cc_impl="sparse",
-                                 device="cpu")
+def test_efficient_flood_fill_sparse_matches_jax():
+    """``cc_impl="sparse"``: every tile of the seam case labelled by the
+    point-cloud CC (no dense round), the seams merged as JAX merges them,
+    and the dense engine's labels."""
+    mask = _tubes_and_speckle()
+    want = jff.efficient_flood_fill(mask, crop_size=(16, 16, 16), cc_impl="sparse")
+    info = {}
+    got = tff.efficient_flood_fill(mask, crop_size=(16, 16, 16), cc_impl="sparse",
+                                   info=info, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    n_tiles = len(jff.crop_origins(mask.shape, (16, 16, 16)))
+    assert info["cc_tiles"] == {"sparse": n_tiles, "dense": 0} and info["rounds"] == 0
+    np.testing.assert_array_equal(
+        got, tff.efficient_flood_fill(mask, crop_size=(16, 16, 16), device="cpu"))

@@ -43,7 +43,10 @@ EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample"
             "skoots_tpu_torch.train.generate_skeletons", "skoots_tpu_torch.utils.lee_thin",
             "skoots_tpu_torch.train.viz", "skoots_tpu_torch.tools.bench_train_kernels",
             "skoots_tpu_torch.utils.tiff", "skoots_tpu_torch.utils.host_lib",
-            "skoots_tpu_torch.models.unext", "skoots_tpu_torch.models.registry"}
+            "skoots_tpu_torch.models.unext", "skoots_tpu_torch.models.registry",
+            "skoots_tpu_torch.infer.perslice", "skoots_tpu_torch.utils.flood_and_stitch",
+            "skoots_tpu_torch.utils.remove_margin", "skoots_tpu_torch.utils.renumber",
+            "skoots_tpu_torch.utils.synthetic"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():
