@@ -125,7 +125,21 @@ them. In order:
     phantom's labels and packed skeletons, exact; ``perfect_prediction``
     with one bake launch counted; ``perslice_segment`` at scale (12, 12,
     6), N = 10): 21 of 21 at IoU 0.5;
-17. prints one JSON line of per-kernel results (each with its least time on
+17. the widths and kernel sizes slice and the accuracy campaign: the kernel
+    checks of 3 also run at the campaign model's shapes (widths 16-32-64 at
+    its training crop and its 128x128x32 and 192x192x32 inference tiles:
+    the tensor-core templates at C = 16), at every other width the JAX
+    kernels take (ragged V at C = 8, 24, 48, 96, 256; the LN head to N =
+    256: the run-time-width kernels) and at k = 9 and 11 (the run-time-k
+    forward and weight gradient), each beside its plain version, cuDNN or
+    the cuBLAS composition; last, the campaign's ``separated`` scenario at
+    the tool's defaults (150 epochs of 10 steps) through
+    ``skoots_tpu_torch/tools/accuracy_campaign.py::run_scenario``: every
+    kernel of its training and inference counted exactly (the plain
+    propagation barred), F1 at IoU 0.5 >= 0.8; then propagate against its
+    plain version on the run's validation skeleton, every CC round of it
+    (0 voxels differing);
+18. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -223,6 +237,44 @@ LN_HEAD_CASES = (
     (96 * 96 * 32, 32, 32, "bf16"), (100003, 32, 32, "bf16"), (100003, 32, 8, "bf16"),
     (12347, 64, 32, "bf16"), (3001, 128, 128, "bf16"), (4173, 32, 32, "f32"),
 )
+# the accuracy campaign's model (tools/accuracy_campaign.py: widths
+# 16-32-64-32-16, depth 1, k 7, 16 output channels) at its training crop
+# (96x96x32, batch 1) and its two inference tiles (128x128x32 and
+# 192x192x32), each at its three levels; then every width the JAX kernels
+# take beyond the templates' (ragged V at C = 8, 24, 48, 96, 256; the LN
+# head to N = 256), and k = 9 and 11 (the run-time-k kernels), bf16 and f32.
+# Their inputs come from a generator of their own, so the cases above keep
+# theirs.
+CAMPAIGN_LEVELS = (((96, 96, 32), 16), ((48, 48, 16), 32), ((24, 24, 8), 64),
+                   ((128, 128, 32), 16), ((64, 64, 16), 32), ((32, 32, 8), 64),
+                   ((192, 192, 32), 16), ((96, 96, 16), 32), ((48, 48, 8), 64))
+CAMPAIGN_DWCONV_CASES = tuple(
+    case for (x, y, z), c in CAMPAIGN_LEVELS
+    for case in ((((1, x, y, z), 1, 16, 7, "bf16"),) if c == 16 else ())
+    + (((1, x, y, z), c, c, 7, "bf16"),)) + (
+    ((1, 96, 96, 32), 16, 16, 9, "bf16"), ((1, 96, 96, 32), 1, 16, 9, "bf16"),
+    ((1, 48, 48, 16), 32, 32, 11, "bf16"), ((2, 40, 36, 20), 32, 32, 9, "f32"),
+    ((1, 24, 24, 8), 64, 64, 11, "f32"))
+CAMPAIGN_TAIL_CASES = tuple((x * y * z, c, "bf16") for (x, y, z), c in CAMPAIGN_LEVELS) + (
+    (12347, 16, "bf16"), (100003, 8, "bf16"), (30011, 24, "bf16"), (30011, 48, "bf16"),
+    (7777, 96, "bf16"), (4099, 256, "bf16"), (4173, 16, "f32"), (4173, 24, "f32"),
+    (4173, 256, "f32"))
+CAMPAIGN_LN_HEAD_CASES = (
+    (96 * 96 * 32, 16, 16, "bf16"), (128 * 128 * 32, 16, 16, "bf16"),
+    (192 * 192 * 32, 16, 16, "bf16"), (100003, 8, 8, "bf16"), (30011, 24, 24, "bf16"),
+    (30011, 48, 200, "bf16"), (12347, 16, 130, "bf16"), (4099, 256, 256, "bf16"),
+    (4099, 32, 256, "bf16"), (4173, 16, 16, "f32"), (4173, 256, 256, "f32"))
+# the campaign model's decoder upsamples: [B, X, Y, Z, C] at the training
+# crop and the two inference tiles
+CAMPAIGN_UPSAMPLE_SHAPES = ((1, 24, 24, 8, 64), (1, 48, 48, 16, 32), (1, 32, 32, 8, 64),
+                            (1, 64, 64, 16, 32), (1, 48, 48, 8, 64), (1, 96, 96, 16, 32))
+# the weight gradient at the campaign's training levels (the stem 1 -> 16 and
+# the three widths) and at k = 9 and 11: ([B, X, Y, Z], Cin, C, k, dtype)
+CAMPAIGN_WGRAD_CASES = (
+    ((1, 96, 96, 32), 1, 16, 7, "bf16"), ((1, 96, 96, 32), 16, 16, 7, "bf16"),
+    ((1, 48, 48, 16), 32, 32, 7, "bf16"), ((1, 24, 24, 8), 64, 64, 7, "bf16"),
+    ((1, 96, 96, 32), 16, 16, 9, "bf16"), ((1, 96, 96, 32), 1, 16, 9, "bf16"),
+    ((1, 48, 48, 16), 32, 32, 11, "bf16"), ((2, 24, 20, 12), 32, 32, 9, "f32"))
 # the block tail's work on the FP32 pipe, in instructions (issue slots of
 # one lane): per hidden value the bias add, three roundings, an erf (about
 # 9) and the GELU's 3 -- 16; per channel of the LayerNorm 8 (sum, centre,
@@ -373,6 +425,7 @@ def check_kernels() -> list:
     )
 
     rng = np.random.default_rng(SEED)
+    extra = np.random.default_rng(SEED + 3)  # the campaign slice's cases
     bf = torch.bfloat16
     results = []
 
@@ -385,11 +438,12 @@ def check_kernels() -> list:
     #    the tensor cores (each product of two bf16 values is exact in f32),
     #    f32 taps on the FP32 pipe. Library call: cuDNN's conv3d on the
     #    channels-last view (grouped per channel; the stem a dense 1 -> C)
-    for shape, cin, c, k, dtn in DWCONV_CASES:
+    for i, (shape, cin, c, k, dtn) in enumerate(DWCONV_CASES + CAMPAIGN_DWCONV_CASES):
+        r = rng if i < len(DWCONV_CASES) else extra
         dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(rng, (*shape, cin), dtype=dt)
-        w = _randn(rng, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
-        b = _randn(rng, (c,), 0.1).to(dt).float()
+        x = _randn(r, (*shape, cin), dtype=dt)
+        w = _randn(r, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
+        b = _randn(r, (c,), 0.1).to(dt).float()
         got = dwconv3d(x, w, b)
         ref = dwconv3d_ref(x, w, b)
         torch.cuda.synchronize()
@@ -419,16 +473,17 @@ def check_kernels() -> list:
     #    plain composition xla_tail (two cuBLAS GEMMs and elementwise
     #    kernels) is timed as a yardstick: no single library call computes
     #    the function, so the JSON line's library_ms stays null
-    for v, c, dtn in TAIL_CASES:
+    for i, (v, c, dtn) in enumerate(TAIL_CASES + CAMPAIGN_TAIL_CASES):
+        r = rng if i < len(TAIL_CASES) else extra
         dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(rng, (v, c), dtype=dt)
-        s = _randn(rng, (v, c), 0.1, dtype=dt)
-        ls = _randn(rng, (c,), 0.1) + 1.0
-        lb = _randn(rng, (c,), 0.1)
-        w1 = _randn(rng, (c, 4 * c), 1 / np.sqrt(c), dtype=dt)
-        b1 = _randn(rng, (4 * c,), 0.1)
-        w2 = _randn(rng, (4 * c, c), 1 / np.sqrt(4 * c), dtype=dt)
-        b2 = _randn(rng, (c,), 0.1)
+        x = _randn(r, (v, c), dtype=dt)
+        s = _randn(r, (v, c), 0.1, dtype=dt)
+        ls = _randn(r, (c,), 0.1) + 1.0
+        lb = _randn(r, (c,), 0.1)
+        w1 = _randn(r, (c, 4 * c), 1 / np.sqrt(c), dtype=dt)
+        b1 = _randn(r, (4 * c,), 0.1)
+        w2 = _randn(r, (4 * c, c), 1 / np.sqrt(4 * c), dtype=dt)
+        b2 = _randn(r, (c,), 0.1)
         g = torch.full((c,), 0.1, device="cuda")
         args = (x, s, ls, lb, w1, b1, w2, b2, g)
         got = mlp_block_tail(*args)
@@ -459,13 +514,14 @@ def check_kernels() -> list:
     #    The plain composition xla_ln_head (a cuBLAS GEMM and elementwise
     #    kernels) is timed as a yardstick: no single library call computes
     #    the function, so the JSON line's library_ms stays null
-    for v, c, n, dtn in LN_HEAD_CASES:
+    for i, (v, c, n, dtn) in enumerate(LN_HEAD_CASES + CAMPAIGN_LN_HEAD_CASES):
+        r = rng if i < len(LN_HEAD_CASES) else extra
         dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(rng, (v, c), dtype=dt)
-        ls = _randn(rng, (c,), 0.1) + 1.0
-        lb = _randn(rng, (c,), 0.1)
-        w = _randn(rng, (c, n), 1 / np.sqrt(c), dtype=dt)
-        b = _randn(rng, (n,), 0.1)
+        x = _randn(r, (v, c), dtype=dt)
+        ls = _randn(r, (c,), 0.1) + 1.0
+        lb = _randn(r, (c,), 0.1)
+        w = _randn(r, (c, n), 1 / np.sqrt(c), dtype=dt)
+        b = _randn(r, (n,), 0.1)
         args = (x, ls, lb, w, b)
         got = ln_head(*args)
         ref = ln_head_ref(*args)
@@ -545,9 +601,9 @@ def check_kernels() -> list:
     #    the separable cascade's 3 operations per blend (42 per input
     #    element). Library call: F.interpolate on the channels-last view
     #    (the same function, computed another way)
-    for shape in UPSAMPLE_SHAPES:
+    for i, shape in enumerate(UPSAMPLE_SHAPES + CAMPAIGN_UPSAMPLE_SHAPES):
         for dt in (bf, torch.float32):
-            x = _randn(rng, shape, dtype=dt)
+            x = _randn(rng if i < len(UPSAMPLE_SHAPES) else extra, shape, dtype=dt)
             got = upsample2x(x)
             ref = upsample2x_ref(x)
             torch.cuda.synchronize()
@@ -1263,6 +1319,33 @@ def check_train_kernels(results: list) -> None:
                 f"{'bf16' if x.dtype == bf else 'f32'}",
                 _time_ms(lambda: dwconv3d_wgrad(x, g, 7)),
                 _time_ms(lambda: dwconv3d_wgrad_ref(x, g, 7)),
+                wgrad_bound(x, g, got), library)
+        del x, g, got, ref, xv, gv
+
+    # 1b. the same at the campaign's training levels (its stem 1 -> 16 runs
+    #     the FP32 kernel: the stem's tensor-core GEMM is for 32 channels)
+    #     and at k = 9 and 11 (the run-time-k kernel), from a generator of
+    #     their own
+    campaign = np.random.default_rng(SEED + 4)
+    for shape, cin, c, k, dtn in CAMPAIGN_WGRAD_CASES:
+        dt = bf if dtn == "bf16" else torch.float32
+        x = _randn(campaign, (*shape, cin), dtype=dt)
+        g = _randn(campaign, (*shape, c), 1e-3, dtype=dt)
+        got = dwconv3d_wgrad(x, g, k)
+        ref = dwconv3d_wgrad_ref(x, g, k)
+        torch.cuda.synchronize()
+        _need(torch.equal(got, dwconv3d_wgrad(x, g, k)),
+              f"dwconv3d_wgrad {shape} k={k}: differs run to run")
+        err_abs = float((got - ref).abs().max())
+        xv, gv = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            library = _time_ms(lambda: torch.nn.grad.conv3d_weight(
+                xv, (c, 1, k, k, k), gv, padding=k // 2, groups=1 if cin == 1 else c))
+        _record(results, "dwconv3d_wgrad", "skoots_tpu_torch/csrc/dwconv_wgrad.cu",
+                "skoots_tpu/kernels/dwconv.py:782", err_abs / float(ref.abs().max()),
+                err_abs, 1e-3, f"of max|plain| at campaign {shape} {cin}->{c} k={k} {dtn}",
+                _time_ms(lambda: dwconv3d_wgrad(x, g, k)),
+                _time_ms(lambda: dwconv3d_wgrad_ref(x, g, k)),
                 wgrad_bound(x, g, got), library)
         del x, g, got, ref, xv, gv
 
@@ -2434,6 +2517,108 @@ def run_perslice_slice(results: list, vol, n_default: int) -> None:
     torch.cuda.empty_cache()
 
 
+# launches of each kernel in one forward of the accuracy campaign's model
+# (the stem and 5 blocks, all at widths the fused tail and head take, 2
+# upsamples), and what a training step adds (5 input gradients, 6 weight
+# gradients, a bake a sample)
+CAMPAIGN_PER_FORWARD = {"dwconv3d": 6, "mlp_block_tail": 5, "ln_head": 1, "upsample2x": 2}
+CAMPAIGN_PER_STEP = {"dwconv3d": 5, "dwconv3d_wgrad": 6}
+
+
+def run_campaign(results: list) -> None:
+    """The accuracy campaign's ``separated`` scenario at the tool's defaults
+    (150 epochs of 10 steps, the campaign model at widths 16-32-64) through
+    ``tools/accuracy_campaign.py::run_scenario`` on the card: the phantoms,
+    ``skoots-train-torch``, ``run_inference`` and the score. Every kernel of
+    its training and inference is counted from 0 (the plain propagation
+    barred): per training step and per forward (the training panels' one
+    an epoch where TensorBoard is installed, the dilation probe's, phase
+    1's tiles), propagate once a CC round. F1 at IoU 0.5 must reach 0.8.
+    Then :func:`check_campaign_propagate` on the run's stored skeleton."""
+    from skoots_tpu_torch.config import load_cfg_from_file
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d_wgrad
+    from skoots_tpu_torch.tools import accuracy_campaign as ac
+
+    try:  # the training loop writes its panels (a forward an epoch) only then
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        panels = True
+    except ImportError:
+        panels = False
+    outdir = os.path.join(ROOT, "build", "campaign_smoke")
+    shutil.rmtree(outdir, ignore_errors=True)
+    epochs, steps_per_epoch = 150, 10
+    kernels = {**_launch_counters(), "dwconv3d_wgrad": dwconv3d_wgrad,
+               "bake_skeleton": bake_skeleton_kernel}
+    result, counts, wall = _drive("campaign [separated]", lambda: ac.run_scenario(
+        "separated", outdir, epochs, steps_per_epoch, device="cuda"), results, kernels)
+    stats = engine.last_stats
+    bsz = load_cfg_from_file(os.path.join(outdir, "separated", "cfg.yaml"))["TRAIN"][
+        "TRAIN_BATCH_SIZE"]
+    steps = result["steps"]
+    tiles = stats["phase1"]["tiles"]
+    forwards = steps + (epochs if panels else 0) + min(4, tiles) + tiles
+    want = {name: k * forwards + CAMPAIGN_PER_STEP.get(name, 0) * steps
+            for name, k in CAMPAIGN_PER_FORWARD.items()}
+    want.update(dwconv3d_wgrad=CAMPAIGN_PER_STEP["dwconv3d_wgrad"] * steps,
+                bake_skeleton=bsz * steps, propagate=stats["phase2"]["cc_rounds"])
+    print(f"campaign [separated]: F1@0.5 {result['f1_at_iou50']} (bar 0.8), mean IoU "
+          f"{result['mean_iou']}, {result['pred_instances']} of {result['gt_instances']} "
+          f"instances, {steps} steps, {wall:.1f} s; launches expected "
+          f"{json.dumps(want)} (panels {panels}, {tiles} tile(s))", flush=True)
+    _need(steps == epochs * steps_per_epoch, f"campaign: {steps} steps trained")
+    for name, c in counts.items():
+        _need(c > 0, f"campaign: kernel {name} was not launched")
+        _need(c == want[name], f"campaign: {name} {c} launches, expected {want[name]}")
+    _need(result["f1_at_iou50"] >= 0.8, f"campaign: separated F1 {result['f1_at_iou50']}")
+    check_campaign_propagate(
+        results, os.path.join(outdir, "separated", "val", "val_skoots_skeleton.npy"),
+        tuple(stats["phase2"]["cc_crop"]), stats["phase2"]["cc_rounds"])
+    shutil.rmtree(outdir, ignore_errors=True)
+
+
+def check_campaign_propagate(results: list, skel_path: str, cc_crop: tuple,
+                             cc_rounds: int) -> None:
+    """Propagate against its plain version at the campaign's phase-2 input:
+    the validation volume's stored skeleton, cut into the engine's CC tiles
+    (``cc_crop``), and every round's labels as ``label_components`` makes
+    them (one pass a round, then the pointer jumps from the kernel's labels)
+    up to the fixpoint. Exact: 0 voxels differing over all rounds; the
+    rounds must be the run's ``cc_rounds``. Times: one pass on the first
+    round's labels."""
+    import torch
+
+    from skoots_tpu_torch.kernels.propagate import propagate, propagate_ref
+    from skoots_tpu_torch.ops.cropper import crop_origins, effective_crop_size
+    from skoots_tpu_torch.ops.flood_fill import _init_labels, _one_round
+    from skoots_tpu_torch.tools.bench_propagate import sparse_bound_ms
+
+    skel = np.load(skel_path)
+    crop = effective_crop_size(skel.shape, cc_crop)
+    differing, rounds, first = 0, 0, None
+    for origin in crop_origins(skel.shape, crop, (0, 0, 0)):
+        sl = tuple(slice(o, o + c) for o, c in zip(origin, crop))
+        fg, lab = _init_labels(torch.from_numpy(np.ascontiguousarray(skel[sl] > 0)).cuda())
+        first = first or (fg, lab)
+        for _ in range(64):  # label_components' max_rounds
+            got, ref = propagate(lab, fg, passes=1), propagate_ref(lab, fg)
+            differing += int((got != ref).sum())
+            new = _one_round(fg, lab, 26, 1, 2)
+            rounds += 1
+            if torch.equal(new, lab):
+                break
+            lab = new
+    fg, lab = first
+    _record(results, "propagate", "skoots_tpu_torch/csrc/propagate.cu",
+            "skoots_tpu/kernels/propagate.py:93", float(differing), float(differing), 0.0,
+            f"voxels differing at the campaign's CC tiles {crop} of {skel.shape}, 1 pass "
+            f"a round, {rounds} rounds, {int(fg.sum())} fg voxels",
+            _time_ms(lambda: propagate(lab, fg, passes=1)),
+            _time_ms(lambda: propagate_ref(lab, fg)), (sparse_bound_ms(fg, 1), "bytes"))
+    _need(rounds == cc_rounds, f"campaign CC: {rounds} rounds here, {cc_rounds} in the run")
+
+
 def main() -> int:
     import torch
 
@@ -2485,6 +2670,7 @@ def main() -> int:
         [(r.image, r.masks) for r in records]))
     run_sparse_inference(results, sparse_ckpt, host_phantom)
     run_perslice_slice(results, host_phantom, n_default)
+    run_campaign(results)
     for r in results:
         r.pop("_largest")
     print(json.dumps({"kernels": results}), flush=True)

@@ -10,7 +10,9 @@ section dicts: ``cfg["TRAIN"]["SEED"]``.
   subset cfg files use, so no PyYAML is needed;
 * :func:`cfg_from_dict` -- the lenient merge of a checkpoint's embedded cfg,
   which keeps unknown keys so checkpoints of other versions still load;
-* :func:`validate_cfg` -- the reference validators, raising ``ValueError``.
+* :func:`validate_cfg` -- the reference validators, raising ``ValueError``;
+* :func:`dump_yaml` -- ``yaml.safe_dump``'s text for what :func:`load_yaml`
+  reads, so a tool can write a cfg without PyYAML.
 """
 
 from __future__ import annotations
@@ -593,6 +595,121 @@ def load_yaml(text: str) -> Any:
         raise YamlSubsetError(f"line {lines[pos][0]}: text after the document's value "
                               "(or an unexpected indentation)")
     return value
+
+
+# what ends a plain scalar's indicator test (PyYAML's emitter,
+# analyze_scalar): the end of the text or whitespace
+_BLANK = "\0 \t\r\n\x85\u2028\u2029"
+
+
+def _plain_allowed(text: str) -> bool:
+    """Whether PyYAML's emitter writes ``text`` as a block plain scalar: not
+    empty, printable ASCII on one line, no leading or trailing space, no
+    indicator that would end or change it, and it reads back as a string."""
+    if not text or text[0] == " " or text[-1] == " " or text.startswith(("---", "...")):
+        return False
+    if any(not " " <= ch <= "~" for ch in text):
+        return False
+    for i, ch in enumerate(text):
+        followed = i + 1 == len(text) or text[i + 1] in _BLANK
+        if i == 0 and (ch in "#,[]{}&*!|>'\"%@`" or (ch in "?:-" and followed)):
+            return False
+        if i > 0 and ((ch == ":" and followed) or (ch == "#" and text[i - 1] in _BLANK)):
+            return False
+    return not any(pattern.match(text) for _, pattern in _RESOLVERS)
+
+
+_DUMP_ESCAPES = {"\0": "0", "\x07": "a", "\x08": "b", "\t": "t", "\n": "n",
+                 "\x0b": "v", "\x0c": "f", "\r": "r", "\x1b": "e", '"': '"',
+                 "\\": "\\", "\x85": "N", "\xa0": "_", "\u2028": "L", "\u2029": "P"}
+
+
+def _dump_scalar(value: Any) -> str:
+    """One scalar as ``yaml.safe_dump`` writes it (PyYAML's representer and
+    emitter at their defaults: plain where allowed, else single quotes, or
+    double quotes with escapes for what is not printable ASCII)."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        return text.replace("e", ".0e", 1) if "." not in text and "e" in text else text
+    if not isinstance(value, str):
+        raise YamlSubsetError(f"dump_yaml: cannot write a {type(value).__name__}")
+    if _plain_allowed(value):
+        return value
+    if all(" " <= ch <= "~" for ch in value):
+        return "'" + value.replace("'", "''") + "'"
+    out = []
+    for ch in value:
+        if ch in _DUMP_ESCAPES:
+            out.append("\\" + _DUMP_ESCAPES[ch])
+        elif " " <= ch <= "~":
+            out.append(ch)
+        elif ord(ch) <= 0xFF:
+            out.append(f"\\x{ord(ch):02X}")
+        elif ord(ch) <= 0xFFFF:
+            out.append(f"\\u{ord(ch):04X}")
+        else:
+            out.append(f"\\U{ord(ch):08X}")
+    return '"' + "".join(out) + '"'
+
+
+def _dump_block(node: Any, indent: int) -> list:
+    """The lines of a non-empty mapping or sequence at ``indent``: keys
+    sorted, a sequence under a key not indented, an item that is itself a
+    collection opening on its ``- `` line, as PyYAML's emitter writes them."""
+    pad = " " * indent
+    lines = []
+    if isinstance(node, dict):
+        for key in sorted(node):
+            value = node[key]
+            head = pad + _dump_scalar(key) + ":"
+            if isinstance(value, dict) and value:
+                lines += [head, *_dump_block(value, indent + 2)]
+            elif isinstance(value, (list, tuple)) and value:
+                lines += [head, *_dump_block(value, indent)]
+            else:
+                lines.append(head + " " + _dump_inline(value))
+        return lines
+    for item in node:
+        if isinstance(item, (dict, list, tuple)) and item:
+            sub = _dump_block(item, indent + 2)
+            sub[0] = pad + "- " + sub[0][indent + 2:]
+            lines += sub
+        else:
+            lines.append(pad + "- " + _dump_inline(item))
+    return lines
+
+
+def _dump_inline(value: Any) -> str:
+    if isinstance(value, dict) and not value:
+        return "{}"
+    if isinstance(value, (list, tuple)) and not value:
+        return "[]"
+    return _dump_scalar(value)
+
+
+def dump_yaml(obj: Any) -> str:
+    """``yaml.safe_dump(obj)``'s text without PyYAML, for what
+    :func:`load_yaml` reads: nested dicts with scalar keys, lists (also of
+    lists, and tuples written as lists), ints, floats, bools, strings and
+    None, in block style with sorted keys, so ``load_yaml(dump_yaml(x)) ==
+    x``. Strings are never folded across lines (PyYAML folds scalars longer
+    than 80 columns at their spaces); anything else raises
+    :class:`YamlSubsetError`."""
+    if isinstance(obj, (dict, list, tuple)) and obj:
+        return "\n".join(_dump_block(obj, 0)) + "\n"
+    text = _dump_inline(obj)
+    # PyYAML ends a document that is one plain scalar with an explicit end
+    return text + ("\n...\n" if text[:1] not in "{['\"" else "\n")
 
 
 def load_cfg_from_file(path: str) -> dict:

@@ -84,6 +84,46 @@ __device__ __forceinline__ void warp_layer_norm(const T* __restrict__ xrow,
   }
 }
 
+// warp_layer_norm at a width known only at run time, any C up to
+// 32 * LN_MAX_PER (the kernels for widths no template instantiates): lane l
+// owns elements l, l + 32, ... below C, and the last 32-column block is
+// zero-padded, as the plain version pads its fold (kernels/mlp.py::fold_sum),
+// so the two agree bit for bit at every width. Same IEEE steps as above.
+constexpr int LN_MAX_PER = 8;
+
+template <typename T>
+__device__ __forceinline__ void warp_layer_norm_any(const T* __restrict__ xrow, bool valid,
+                                                    const float* __restrict__ ls,
+                                                    const float* __restrict__ lb, float eps,
+                                                    int C, float* hrow) {
+  const int lane = threadIdx.x & 31;
+  const int per = (C + 31) / 32;
+  float v[LN_MAX_PER];
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = valid && c < C ? to_f32<T>(xrow[c]) : 0.f;
+  }
+  float s = v[0];
+#pragma unroll
+  for (int i = 1; i < LN_MAX_PER; ++i)
+    if (i < per) s = __fadd_rn(s, v[i]);
+  const float mu = __fdiv_rn(warp_fold_sum(s), (float)C);
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER; ++i) v[i] = lane + 32 * i < C ? __fsub_rn(v[i], mu) : 0.f;
+  float q = __fmul_rn(v[0], v[0]);
+#pragma unroll
+  for (int i = 1; i < LN_MAX_PER; ++i)
+    if (i < per) q = __fadd_rn(q, __fmul_rn(v[i], v[i]));
+  const float var = __fdiv_rn(warp_fold_sum(q), (float)C);
+  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+  for (int i = 0; i < LN_MAX_PER; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C) hrow[c] = rnd<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[i], inv), ls[c]), lb[c]));
+  }
+}
+
 // ---- Hopper building blocks (inline PTX, sm_80+ instructions) -------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -40,6 +40,9 @@
 // half the products of the banded form, which the card ran slower for the
 // stem (PERF.md); its indexing is stated in the same test file.
 //
+// k other than 3, 5 and 7 (any odd k, `dwconv3d_any_kernel`): a thread an
+// output value, below.
+//
 // f32, bf16 with C % 8 != 0 and stems of other than 32 channels
 // (`dwconv3d_kernel`): FP32 FMAs. A block
 // stages a (TX+k-1) x (TY+k-1) x (TZ+k-1) halo tile of CC channels in
@@ -527,6 +530,63 @@ int launch(const void* x, const float* w, const float* b, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// ---- any other odd k: a thread an output value ---------------------------------
+//
+// JAX's schema takes any odd KERNEL_SIZE >= 3; the kernels above
+// instantiate 3, 5 and 7. Every other odd k runs `dwconv3d_any_kernel`: k a
+// run-time value, one thread an output value (channels fastest, so a warp
+// reads neighbouring channels of one voxel), its k^3 taps read through the
+// cache and summed in f32 in (dx, dy, dz) order, the bias added in f32 and
+// one rounding, the plain version's function.
+constexpr int ANY_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(ANY_THREADS)
+dwconv3d_any_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, T* __restrict__ out, long long n, int X,
+                    int Y, int Z, int C, int k, long long x_vstride, long long x_cstride) {
+  const long long o = (long long)blockIdx.x * ANY_THREADS + threadIdx.x;
+  if (o >= n) return;
+  const int c = (int)(o % C);
+  long long v = o / C;
+  const int z = (int)(v % Z);
+  v /= Z;
+  const int y = (int)(v % Y);
+  v /= Y;
+  const int xi = (int)(v % X);
+  const long long bi = v / X;
+  const int P = k / 2;
+  const T* xb = x + bi * X * Y * Z * x_vstride + c * x_cstride;
+  float acc = 0.f;
+  for (int dx = 0; dx < k; ++dx) {
+    const int gx = xi + dx - P;
+    if (gx < 0 || gx >= X) continue;
+    for (int dy = 0; dy < k; ++dy) {
+      const int gy = y + dy - P;
+      if (gy < 0 || gy >= Y) continue;
+      const T* col = xb + ((long long)gx * Y + gy) * Z * x_vstride;
+      const float* wr = w + (long long)(dx * k + dy) * k * C + c;
+      for (int dz = 0; dz < k; ++dz) {
+        const int gz = z + dz - P;
+        if (gz >= 0 && gz < Z) acc = fmaf(to_f32<T>(col[gz * x_vstride]), wr[dz * C], acc);
+      }
+    }
+  }
+  out[o] = from_f32<T>(acc + b[c]);
+}
+
+template <typename T>
+int launch_any(int k, const void* x, const float* w, const float* b, void* out, int B, int X,
+               int Y, int Z, int C, long long x_vstride, long long x_cstride,
+               cudaStream_t stream) {
+  const long long n = (long long)B * X * Y * Z * C;
+  if (n == 0) return 0;
+  dwconv3d_any_kernel<T><<<(unsigned)((n + ANY_THREADS - 1) / ANY_THREADS), ANY_THREADS, 0,
+                           stream>>>(static_cast<const T*>(x), w, b, static_cast<T*>(out), n,
+                                     X, Y, Z, C, k, x_vstride, x_cstride);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch_k(int k, const void* x, const float* w, const float* b,
                void* out, int B, int X, int Y, int Z, int C,
@@ -535,7 +595,9 @@ int dispatch_k(int k, const void* x, const float* w, const float* b,
     case 3: return launch<T, 3>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
     case 5: return launch<T, 5>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
     case 7: return launch<T, 7>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (k < 3 || k % 2 == 0) return (int)cudaErrorInvalidValue;
+      return launch_any<T>(k, x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
   }
 }
 

@@ -46,6 +46,9 @@
 // copy shifted by one element), as the stem's forward does. A warp owns one
 // dx, the block one (x, 16 y, 16 z) tile at a time of a persistent grid.
 //
+// k other than 3, 5 and 7 (any odd k, `dwconv3d_wgrad_any_kernel`): a
+// thread a weight-gradient entry of a partial row, below.
+//
 // f32, and bf16 without 16-byte channel groups (`dwconv3d_wgrad_kernel`):
 // FP32 FMAs. The tensor cores would round f32 operands to TF32, which is
 // not the function:
@@ -519,7 +522,7 @@ stem_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
 // ---- launch plans ---------------------------------------------------------------
 
-enum Path { FP32 = 0, DEPTHWISE_TC = 1, STEM_TC = 2 };
+enum Path { FP32 = 0, DEPTHWISE_TC = 1, STEM_TC = 2, ANY_K = 3 };
 
 // what a call launches, from make_plan; the caller keeps it as int32
 // [PLAN_INTS] (skoots_dwconv3d_wgrad_plan) and hands it to every launch at
@@ -529,6 +532,7 @@ struct Plan {
   int rows = 0;   // rows of the partial buffer (= blocks, or tiles of the FP32 kernel)
   int grid = 0;
   int nxs = 1, xt = 1, units = 0, nper = 0;  // the depthwise tensor-core kernel
+                                             // (ANY_K: xt (b, x) planes a row)
   int smem = 0;
 };
 constexpr int PLAN_INTS = 8;
@@ -664,6 +668,98 @@ int launch(const void* x, const void* g, float* partial, float* out, int B, int 
   return (int)cudaGetLastError();
 }
 
+// ---- any other odd k: a thread a weight-gradient entry of a row ------------------
+//
+// JAX's schema takes any odd KERNEL_SIZE >= 3; the kernels above
+// instantiate 3, 5 and 7. Every other odd k runs
+// `dwconv3d_wgrad_any_kernel`: k a run-time value; partial row r owns the
+// (b, x) planes r * xt ... of the batch, and thread (r, e) sums over them,
+// in (b, x, y, z) order, the products of entry e = ((dx k + dy) k + dz) C + c
+// (channels fastest, so a warp reads neighbouring channels of a voxel through
+// the cache); the rows then add in wgrad_reduce_kernel's fixed order.
+constexpr int ANY_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(ANY_THREADS)
+dwconv3d_wgrad_any_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          float* __restrict__ partial, int B, int X, int Y, int Z, int C,
+                          int k, long long x_vstride, long long x_cstride, int xt) {
+  const int n = k * k * k * C;
+  const int e = blockIdx.x * ANY_THREADS + threadIdx.x;
+  if (e >= n) return;
+  const int r = blockIdx.y;
+  const int c = e % C;
+  int t = e / C;
+  const int dz = t % k;
+  t /= k;
+  const int dy = t % k;
+  const int dx = t / k;
+  const int P = k / 2;
+  // output z whose input z + dz - P lies in the volume
+  const int z0 = P - dz > 0 ? P - dz : 0;
+  const int z1 = Z + P - dz < Z ? Z + P - dz : Z;
+  const long long planes = (long long)B * X;
+  const long long p1 = (long long)(r + 1) * xt < planes ? (long long)(r + 1) * xt : planes;
+  float acc = 0.f;
+  for (long long p = (long long)r * xt; p < p1; ++p) {
+    const long long bi = p / X;
+    const int xi = (int)(p % X);
+    const int gx = xi + dx - P;
+    if (gx < 0 || gx >= X) continue;
+    const T* xb = x + ((bi * X + gx) * Y) * Z * x_vstride + c * x_cstride;
+    const T* gb = g + ((bi * X + xi) * Y) * Z * C + c;
+    for (int y = 0; y < Y; ++y) {
+      const int gy = y + dy - P;
+      if (gy < 0 || gy >= Y) continue;
+      const T* xr = xb + (long long)gy * Z * x_vstride;
+      const T* gr = gb + (long long)y * Z * C;
+      for (int z = z0; z < z1; ++z)
+        acc = fmaf(to_f32<T>(xr[(z + dz - P) * x_vstride]), to_f32<T>(gr[(long long)z * C]),
+                   acc);
+    }
+  }
+  partial[(long long)r * n + e] = acc;
+}
+
+template <typename T>
+cudaError_t make_plan_any(int k, int B, int X, int C, Plan* plan) {
+  Plan p;
+  p.path = ANY_K;
+  const long long planes = (long long)B * X;
+  if (planes > 0 && C > 0) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    // about two waves of 2048 threads an SM, at most a row a plane
+    const long long n = (long long)k * k * k * C;
+    long long rows = 2LL * sms * 2048 / n;
+    rows = rows < 1 ? 1 : (rows > planes ? planes : rows);
+    p.xt = (int)((planes + rows - 1) / rows);
+    p.rows = (int)((planes + p.xt - 1) / p.xt);
+    p.grid = (int)((n + ANY_THREADS - 1) / ANY_THREADS);
+  }
+  *plan = p;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_any(int k, const void* x, const void* g, float* partial, float* out, int B, int X,
+               int Y, int Z, int C, long long x_vstride, long long x_cstride, const Plan& p,
+               cudaStream_t stream) {
+  const int n = k * k * k * C;
+  if (p.rows > 0 && (long long)Y * Z > 0) {
+    dwconv3d_wgrad_any_kernel<T><<<dim3(p.grid, p.rows), ANY_THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), partial, B, X, Y, Z, C, k,
+        x_vstride, x_cstride, p.xt);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  wgrad_reduce_kernel<<<(n + RED_COLS - 1) / RED_COLS, RED_ROWS * RED_COLS, 0, stream>>>(
+      partial, out, (long long)Y * Z > 0 ? p.rows : 0, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch_launch(int k, const void* x, const void* g, float* partial, float* out, int B,
                     int X, int Y, int Z, int C, long long x_vstride, long long x_cstride,
@@ -672,7 +768,9 @@ int dispatch_launch(int k, const void* x, const void* g, float* partial, float* 
     case 3: return launch<T, 3>(x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
     case 5: return launch<T, 5>(x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
     case 7: return launch<T, 7>(x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (k < 3 || k % 2 == 0 || p.path != ANY_K) return (int)cudaErrorInvalidValue;
+      return launch_any<T>(k, x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
   }
 }
 
@@ -683,7 +781,9 @@ cudaError_t dispatch_plan(int k, const void* x, const void* g, int B, int X, int
     case 3: return make_plan<T, 3>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
     case 5: return make_plan<T, 5>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
     case 7: return make_plan<T, 7>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (k < 3 || k % 2 == 0) return cudaErrorInvalidValue;
+      return make_plan_any<T>(k, B, X, C, p);
   }
 }
 
@@ -719,7 +819,7 @@ extern "C" int skoots_dwconv3d_wgrad(int dtype, const void* x, const void* g, vo
                                      const int* plan, void* stream) {
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
-  if (p.path < FP32 || p.path > STEM_TC || p.rows < 0) return (int)cudaErrorInvalidValue;
+  if (p.path < FP32 || p.path > ANY_K || p.rows < 0) return (int)cudaErrorInvalidValue;
   float* pf = static_cast<float*>(partial);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

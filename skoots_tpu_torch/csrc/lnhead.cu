@@ -31,6 +31,11 @@
 // The epilogue rounds, adds the bias, rounds, stages the rows through
 // shared memory and stores 16-byte rows.
 //
+// Widths: JAX's fused head takes every C % 8 == 0 up to 256 and any N.
+// The tensor-core template runs C = 16, 32, 64 and 128 with N <= 128 at
+// bf16, the f32 template C = 32, 64 and 128 with N <= 256; everything else
+// runs `ln_head_any_kernel` (below).
+//
 // f32 (`ln_head_kernel`, only the card-vs-CPU f32 check runs it): one warp
 // a row, W in shared memory as f32 and the dot products as unfused FP32
 // steps in the plain version's order, so it equals ln_head_ref bit for bit.
@@ -178,6 +183,9 @@ template <int C>
 __device__ __forceinline__ void layer_norm_row(bf16* row, const float* ls, const float* lb,
                                                float eps) {
   float s[32];
+  // C = 16: the partial sums of columns 16-31 are the plain fold's zero pad
+#pragma unroll
+  for (int i = C; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
   for (int j = 0; j < C / 8; ++j) {
     float v[8];
@@ -189,6 +197,8 @@ __device__ __forceinline__ void layer_norm_row(bf16* row, const float* ls, const
     }
   }
   const float mu = __fdiv_rn(fold32(s), (float)C);
+#pragma unroll
+  for (int i = C; i < 32; ++i) s[i] = 0.f;
 #pragma unroll
   for (int j = 0; j < C / 8; ++j) {
     float v[8];
@@ -451,21 +461,93 @@ int dispatch_n(const void* x, const float* ls, const float* lb, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- every other width: FP32 steps in the plain order -------------------------
+//
+// JAX's fused head takes every C % 8 == 0 up to 256 and any N; the
+// templates above instantiate C = 16, 32, 64, 128 with N <= 128 at bf16 and
+// C = 32, 64, 128 with N <= F32_MAX_N at f32. Everything else runs
+// `ln_head_any_kernel`: C and N run-time values, a block of T_ROWS rows
+// normalised a warp a row (common.cuh::warp_layer_norm_any) into shared
+// memory, then a thread an output value, its dot product as unfused FP32
+// steps in the plain version's order with W read through the cache (at
+// C = N = 256 f32 it is 256 KB, more than shared memory holds), so it
+// equals ln_head_ref bit for bit.
+constexpr int F32_MAX_N = 256;  // the f32 template's W in shared memory
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ln_head_any_kernel(const T* __restrict__ x, const float* __restrict__ ls,
+                   const float* __restrict__ lb, const T* __restrict__ w,
+                   const float* __restrict__ b, T* __restrict__ out, long long V, int C,
+                   int N, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hs = reinterpret_cast<float*>(smem);  // [T_ROWS][C]
+  float* lss = hs + T_ROWS * C;                // the LN parameters rounded to T
+  float* lbs = lss + C;
+  const long long row0 = (long long)blockIdx.x * T_ROWS;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C; i += THREADS) {
+    lss[i] = rnd<T>(ls[i]);
+    lbs[i] = rnd<T>(lb[i]);
+  }
+  __syncthreads();
+  for (int r = tid >> 5; r < T_ROWS; r += THREADS / 32) {
+    const long long g = row0 + r;
+    warp_layer_norm_any<T>(x + (g < V ? g : 0) * C, g < V, lss, lbs, eps, C, hs + r * C);
+  }
+  __syncthreads();
+  for (int i = tid; i < T_ROWS * N; i += THREADS) {
+    const int r = i / N, n = i % N;
+    const long long g = row0 + r;
+    if (g >= V) continue;
+    const float* h = hs + r * C;
+    float acc = __fmul_rn(h[0], to_f32<T>(w[n]));
+    for (int k = 1; k < C; ++k)
+      acc = __fadd_rn(acc, __fmul_rn(h[k], to_f32<T>(w[(long long)k * N + n])));
+    out[g * N + n] = from_f32<T>(__fadd_rn(rnd<T>(acc), rnd<T>(b[n])));
+  }
+}
+
+template <typename T>
+int launch_any_t(const void* x, const float* ls, const float* lb, const void* w,
+                 const float* b, void* out, long long V, int C, int N, float eps,
+                 cudaStream_t s) {
+  const int smem = (T_ROWS * C + 2 * C) * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(ln_head_any_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (V + T_ROWS - 1) / T_ROWS;
+  ln_head_any_kernel<T><<<(unsigned)blocks, THREADS, smem, s>>>(
+      static_cast<const T*>(x), ls, lb, static_cast<const T*>(w), b, static_cast<T*>(out), V,
+      C, N, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_any(int dtype, const void* x, const float* ls, const float* lb, const void* w,
+               const float* b, void* out, long long V, int C, int N, float eps,
+               cudaStream_t s) {
+  if (dtype == SKOOTS_BF16) return launch_any_t<bf16>(x, ls, lb, w, b, out, V, C, N, eps, s);
+  if (dtype == SKOOTS_F32) return launch_any_t<float>(x, ls, lb, w, b, out, V, C, N, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int C>
 int launch(int dtype, const void* x, const float* ls, const float* lb, const void* w,
            const float* b, void* out, long long V, int N, float eps, cudaStream_t s) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  if (V == 0) return 0;
-  if (dtype == SKOOTS_BF16) return dispatch_n<C>(x, ls, lb, w, b, out, V, N, eps, s);
-  if (dtype == SKOOTS_F32) return launch_f32<C>(x, ls, lb, w, b, out, V, N, eps, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == SKOOTS_BF16 && N <= 128) return dispatch_n<C>(x, ls, lb, w, b, out, V, N, eps, s);
+  if constexpr (C >= 32) {
+    if (dtype == SKOOTS_F32 && N <= F32_MAX_N)
+      return launch_f32<C>(x, ls, lb, w, b, out, V, N, eps, s);
+  }
+  return launch_any(dtype, x, ls, lb, w, b, out, V, C, N, eps, s);
 }
 
 }  // namespace
 
-// x: [V, C] of `dtype`; w: [C, N] of `dtype` (bf16: N <= 128); ln_scale,
-// ln_bias: f32 [C]; b: f32 [N] (the kernels round the three to `dtype`);
-// out: [V, N] of `dtype`.
+// x: [V, C] of `dtype` (C % 8 == 0, 8 <= C <= 256; 16-byte aligned: the
+// bf16 tensor-core kernel copies 16-byte rows); w: [C, N] of `dtype` (any
+// N >= 1); ln_scale, ln_bias: f32 [C]; b: f32 [N] (the kernels round
+// the three to `dtype`); out: [V, N] of `dtype`.
 extern "C" int skoots_ln_head(int dtype, const void* x, const void* ln_scale,
                               const void* ln_bias, const void* w,
                               const void* b, void* out, long long V, int C,
@@ -474,10 +556,13 @@ extern "C" int skoots_ln_head(int dtype, const void* x, const void* ln_scale,
   const float* lb = static_cast<const float*>(ln_bias);
   const float* fb = static_cast<const float*>(b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || C < 8 || C > 256 || C % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (V == 0) return 0;
   switch (C) {
+    case 16: return launch<16>(dtype, x, ls, lb, w, fb, out, V, N, eps, s);
     case 32: return launch<32>(dtype, x, ls, lb, w, fb, out, V, N, eps, s);
     case 64: return launch<64>(dtype, x, ls, lb, w, fb, out, V, N, eps, s);
     case 128: return launch<128>(dtype, x, ls, lb, w, fb, out, V, N, eps, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_any(dtype, x, ls, lb, w, fb, out, V, C, N, eps, s);
   }
 }

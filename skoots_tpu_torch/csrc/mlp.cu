@@ -14,13 +14,18 @@
 // FP32 pipe. At C = 32 the erf epilogue, not the products or the bytes, is
 // expected to set the pace.
 //
+// Widths: JAX's fused tail takes every C % 8 == 0 up to 256. The
+// tensor-core template runs C = 16, 32, 64 and 128 at bf16, the f32
+// template 32, 64 and 128; every other width, either type, runs
+// `tail_any_kernel` (below).
+//
 // bf16 (the main path, `tail_tc_kernel`): both GEMMs on the tensor cores
 // (mma.sync m16n8k16, bf16 operands, f32 accumulation: the products of bf16
 // values are exact, so this is the same arithmetic as the FP32 FMAs in
 // another summation order). A persistent grid of 4-8 warp blocks walks row
 // tiles of 16 rows a warp; w1 and w2 sit in shared memory once a block
 // (C = 128: 256 KB do not fit, so 128-hidden-column chunks of both stream
-// through a ring of two buffers), padded so `ldmatrix` reads them without
+// through a ring of two buffers; C = 16: one chunk of all 64), padded so `ldmatrix` reads them without
 // bank conflicts. Row tiles of x and the shortcut arrive by cp.async,
 // double-buffered. A warp normalises its 16 rows at once (`layer_norm16`:
 // common.cuh::warp_layer_norm's arithmetic, its fold as one reduce-scatter
@@ -156,8 +161,8 @@ using bf16 = __nv_bfloat16;
 template <int C>
 struct Tail {
   static constexpr int H = 4 * C;
-  static constexpr int HC = 128;            // hidden columns per chunk
-  static constexpr int NCH = H / HC;        // 1, 2, 4
+  static constexpr int HC = H < 128 ? H : 128;  // hidden columns per chunk
+  static constexpr int NCH = H / HC;            // 1, 1, 2, 4
   static constexpr bool STREAM = C == 128;  // w1 + w2 > 227 KB: ring of 2 chunks
   static constexpr int NBUF = STREAM ? 2 : NCH;
   static constexpr int WARPS = C == 128 ? 4 : 8;
@@ -251,20 +256,23 @@ __device__ __forceinline__ float fold_sum16(const float (&s)[16]) {
 
 // common.cuh::warp_layer_norm of the warp's 16 rows (xs: [16][C], rows
 // row0 ... of V; out: [16][HS]), every step the same IEEE operation in
-// the same order, so the result is that function's bit for bit.
+// the same order, so the result is that function's bit for bit. At C = 16
+// lanes 16-31 hold zeros, as the plain version pads its fold.
 template <int C, int HS>
 __device__ __forceinline__ void layer_norm16(const bf16* xs, long long row0, long long V,
                                              const float* __restrict__ ls,
                                              const float* __restrict__ lb, float eps,
                                              bf16* out) {
-  constexpr int PER = C / 32;
+  constexpr int PER = (C + 31) / 32;
+  constexpr bool PAD = C % 32 != 0;
   const int lane = threadIdx.x & 31;
   float v[16][PER], s[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      v[r][i] = row0 + r < V ? __bfloat162float(xs[r * C + lane + 32 * i]) : 0.f;
+      v[r][i] = row0 + r < V && (!PAD || lane + 32 * i < C)
+                    ? __bfloat162float(xs[r * C + lane + 32 * i]) : 0.f;
     s[r] = v[r][0];
 #pragma unroll
     for (int i = 1; i < PER; ++i) s[r] = __fadd_rn(s[r], v[r][i]);
@@ -274,7 +282,8 @@ __device__ __forceinline__ void layer_norm16(const bf16* xs, long long row0, lon
   for (int r = 0; r < 16; ++r) {
     const float mu = __shfl_sync(0xffffffffu, mu_own, 2 * r);
 #pragma unroll
-    for (int i = 0; i < PER; ++i) v[r][i] = __fsub_rn(v[r][i], mu);
+    for (int i = 0; i < PER; ++i)
+      v[r][i] = !PAD || lane + 32 * i < C ? __fsub_rn(v[r][i], mu) : 0.f;
     s[r] = __fmul_rn(v[r][0], v[r][0]);
 #pragma unroll
     for (int i = 1; i < PER; ++i) s[r] = __fadd_rn(s[r], __fmul_rn(v[r][i], v[r][i]));
@@ -284,15 +293,17 @@ __device__ __forceinline__ void layer_norm16(const bf16* xs, long long row0, lon
   float sc[PER], bi[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    sc[i] = ls[lane + 32 * i];
-    bi[i] = lb[lane + 32 * i];
+    const bool in = !PAD || lane + 32 * i < C;
+    sc[i] = in ? ls[lane + 32 * i] : 0.f;
+    bi[i] = in ? lb[lane + 32 * i] : 0.f;
   }
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const float inv = __shfl_sync(0xffffffffu, inv_own, 2 * r);
 #pragma unroll
     for (int i = 0; i < PER; ++i)
-      out[r * HS + lane + 32 * i] =
+      if (!PAD || lane + 32 * i < C)
+        out[r * HS + lane + 32 * i] =
           __float2bfloat16_rn(__fadd_rn(__fmul_rn(__fmul_rn(v[r][i], inv), sc[i]), bi[i]));
   }
 }
@@ -492,19 +503,123 @@ int launch_f32(const void* x, const void* sc, const float* ls, const float* lb,
   return (int)cudaGetLastError();
 }
 
+// ---- every other width: FP32 FMAs ------------------------------------------
+//
+// JAX's fused tail takes every C % 8 == 0 up to 256; the templates above
+// instantiate 16 (bf16), 32, 64 and 128. Every other width (and either
+// type) runs `tail_any_kernel`: C a run-time value, a block of G_ROWS rows,
+// the LayerNorm a warp a row (common.cuh::warp_layer_norm_any), GEMM1 into
+// the block's whole [G_ROWS, 4C] hidden activation in shared memory (160 KB
+// at C = 256), rounded where the plain version rounds, then GEMM2 from
+// there. A thread owns one column of G_RG rows, so each weight it reads
+// feeds G_RG FMAs; the weights are read through the cache, not staged (at
+// C = 256 w1 + w2 are 1 MB at bf16, more than shared memory holds). Sums in
+// f32, in k order.
+constexpr int G_ROWS = 32;
+constexpr int G_RG = 8;  // rows a thread sums
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+tail_any_kernel(const T* __restrict__ x, const T* __restrict__ sc,
+                const float* __restrict__ ls, const float* __restrict__ lb,
+                const T* __restrict__ w1, const float* __restrict__ b1,
+                const T* __restrict__ w2, const float* __restrict__ b2,
+                const float* __restrict__ gamma, T* __restrict__ out, long long V, int C,
+                float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = 4 * C;
+  float* hs = reinterpret_cast<float*>(smem);  // [G_ROWS][C]
+  float* as = hs + G_ROWS * C;                 // [G_ROWS][H]
+  const long long row0 = (long long)blockIdx.x * G_ROWS;
+  const int tid = threadIdx.x;
+  for (int r = tid >> 5; r < G_ROWS; r += THREADS / 32) {
+    const long long g = row0 + r;
+    warp_layer_norm_any<T>(x + (g < V ? g : 0) * C, g < V, ls, lb, eps, C, hs + r * C);
+  }
+  __syncthreads();
+  for (int i = tid; i < (G_ROWS / G_RG) * H; i += THREADS) {
+    const int j = i % H, r0 = (i / H) * G_RG;
+    float acc[G_RG];
+#pragma unroll
+    for (int r = 0; r < G_RG; ++r) acc[r] = 0.f;
+    for (int k = 0; k < C; ++k) {
+      const float w = to_f32<T>(w1[(long long)k * H + j]);
+#pragma unroll
+      for (int r = 0; r < G_RG; ++r) acc[r] = fmaf(hs[(r0 + r) * C + k], w, acc[r]);
+    }
+    const float bj = b1[j];
+#pragma unroll
+    for (int r = 0; r < G_RG; ++r)
+      as[(r0 + r) * H + j] = rnd<T>(gelu_erf(rnd<T>(rnd<T>(acc[r]) + bj)));
+  }
+  __syncthreads();
+  for (int i = tid; i < (G_ROWS / G_RG) * C; i += THREADS) {
+    const int c = i % C, r0 = (i / C) * G_RG;
+    float acc[G_RG];
+#pragma unroll
+    for (int r = 0; r < G_RG; ++r) acc[r] = 0.f;
+    for (int k = 0; k < H; ++k) {
+      const float w = to_f32<T>(w2[(long long)k * C + c]);
+#pragma unroll
+      for (int r = 0; r < G_RG; ++r) acc[r] = fmaf(as[(r0 + r) * H + k], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < G_RG; ++r) {
+      const long long g = row0 + r0 + r;
+      if (g >= V) continue;
+      const float y = rnd<T>(rnd<T>(rnd<T>(acc[r]) + b2[c]) * gamma[c]);
+      out[g * C + c] = from_f32<T>(to_f32<T>(sc[g * C + c]) + y);
+    }
+  }
+}
+
+template <typename T>
+int launch_any_t(const void* x, const void* sc, const float* ls, const float* lb,
+                 const void* w1, const float* b1, const void* w2, const float* b2,
+                 const float* gamma, void* out, long long V, int C, float eps,
+                 cudaStream_t s) {
+  const int smem = G_ROWS * 5 * C * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(tail_any_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (V + G_ROWS - 1) / G_ROWS;
+  tail_any_kernel<T><<<(unsigned)blocks, THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sc), ls, lb, static_cast<const T*>(w1),
+      b1, static_cast<const T*>(w2), b2, gamma, static_cast<T*>(out), V, C, eps);
+  return (int)cudaGetLastError();
+}
+
+int launch_any(int dtype, const void* x, const void* sc, const float* ls, const float* lb,
+               const void* w1, const float* b1, const void* w2, const float* b2,
+               const float* gamma, void* out, long long V, int C, float eps, cudaStream_t s) {
+  if (V == 0) return 0;
+  if (dtype == SKOOTS_BF16)
+    return launch_any_t<bf16>(x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, C, eps, s);
+  if (dtype == SKOOTS_F32)
+    return launch_any_t<float>(x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, C, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel copies 16-byte rows of x, the shortcut, out and
+// the weights: the caller passes them on 16-byte boundaries.
 template <int C>
 int launch(int dtype, const void* x, const void* sc, const float* ls, const float* lb,
            const void* w1, const float* b1, const void* w2, const float* b2,
            const float* gamma, void* out, long long V, float eps, cudaStream_t s) {
   if (V == 0) return 0;
-  if (dtype == SKOOTS_BF16) return launch_tc<C>(x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, eps, s);
-  if (dtype == SKOOTS_F32) return launch_f32<C>(x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, eps, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == SKOOTS_BF16)
+    return launch_tc<C>(x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, eps, s);
+  if constexpr (C >= 32) {
+    if (dtype == SKOOTS_F32)
+      return launch_f32<C>(x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, eps, s);
+  }
+  return launch_any(dtype, x, sc, ls, lb, w1, b1, w2, b2, gamma, out, V, C, eps, s);
 }
 
 }  // namespace
 
-// x, shortcut, out: [V, C] of `dtype`; w1: [C, 4C], w2: [4C, C] of `dtype`;
+// x, shortcut, out: [V, C] of `dtype` (C % 8 == 0, 8 <= C <= 256); w1:
+// [C, 4C], w2: [4C, C] of `dtype`; all four on 16-byte boundaries;
 // ln_scale, ln_bias, b2, gamma: f32 [C]; b1: f32 [4C]. The f32 vectors hold
 // values already rounded to `dtype` (the TPU kernel casts them the same way).
 extern "C" int skoots_mlp_tail(int dtype, const void* x, const void* shortcut,
@@ -519,9 +634,12 @@ extern "C" int skoots_mlp_tail(int dtype, const void* x, const void* shortcut,
   const float* g = static_cast<const float*>(gamma);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
+    case 16: return launch<16>(dtype, x, shortcut, ls, lb, w1, fb1, w2, fb2, g, out, V, eps, s);
     case 32: return launch<32>(dtype, x, shortcut, ls, lb, w1, fb1, w2, fb2, g, out, V, eps, s);
     case 64: return launch<64>(dtype, x, shortcut, ls, lb, w1, fb1, w2, fb2, g, out, V, eps, s);
     case 128: return launch<128>(dtype, x, shortcut, ls, lb, w1, fb1, w2, fb2, g, out, V, eps, s);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (C < 8 || C > 256 || C % 8 != 0) return (int)cudaErrorInvalidValue;
+      return launch_any(dtype, x, shortcut, ls, lb, w1, fb1, w2, fb2, g, out, V, C, eps, s);
   }
 }

@@ -27,6 +27,12 @@ weight gradient is :func:`dwconv3d_wgrad`, the bias gradient the f32 sum of
 the cotangent; dw and db round to the compute dtype, as JAX's
 ``.astype(w.dtype)`` does.
 
+Kernel sizes: every odd k >= 3, as JAX's schema takes. The kernels above
+are instantiated for k = 3, 5 and 7; every other odd k runs a simple kernel
+with a run-time k, forward (a thread an output value) and weight gradient
+(a thread a weight entry of a partial row), f32 sums. The input gradient is
+the forward kernel, so it takes the same k.
+
 Numerics of both forward versions: the taps accumulate in f32, the bias is
 added in f32, and the result rounds ONCE to the input dtype, as the Pallas
 kernel does. (The JAX package's XLA path, which it uses off the TPU, rounds
@@ -59,7 +65,7 @@ def dwconv3d_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def _check_conv_operands(what: str, x: torch.Tensor, c: int, k: int) -> None:
-    if x.ndim != 5 or x.shape[-1] not in (1, c) or k not in (3, 5, 7) \
+    if x.ndim != 5 or x.shape[-1] not in (1, c) or k < 3 or k % 2 == 0 \
             or x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{what}: unsupported x {tuple(x.shape)} {x.dtype}, "
                          f"k={k}, C={c}")

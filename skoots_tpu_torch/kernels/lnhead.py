@@ -3,7 +3,11 @@
 Replaces ``skoots_tpu/kernels/lnhead.py::_ln_head_call`` (body
 ``_kernel``). The Hopper kernel is ``csrc/lnhead.cu``: a memory-bound single
 pass (read C, write N values per voxel), at bf16 with the products on the
-tensor cores, at f32 on the FP32 pipe (see the source header).
+tensor cores, at f32 on the FP32 pipe (see the source header). It takes
+every width the JAX kernel takes (:func:`ln_head_eligible`) and any N: the
+tensor-core kernel C = 16, 32, 64 and 128 with N <= 128 at bf16, the f32
+kernel C = 32, 64 and 128 with N <= 256, a kernel with run-time C and N
+everything else.
 
 Numerics of both versions, as at ``lnhead.py:39-49``: LN statistics in f32
 (eps 1e-6), the affine result rounded to the model dtype ``dt``, the matmul
@@ -24,7 +28,18 @@ from __future__ import annotations
 import torch
 
 from skoots_tpu_torch.kernels import _build
-from skoots_tpu_torch.kernels.mlp import EPS, _rnd, layer_norm_rows, recompute_grads
+from skoots_tpu_torch.kernels.mlp import (
+    EPS,
+    _rnd,
+    layer_norm_rows,
+    mlp_tail_eligible,
+    recompute_grads,
+)
+
+# The JAX package's width rule for its fused LN head
+# (``skoots_tpu/kernels/lnhead.py::ln_head_eligible``) is the block tail's,
+# any N; the model runs flax's LayerNorm and 1x1 conv at every other width.
+ln_head_eligible = mlp_tail_eligible
 
 
 def _dot_in_order(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -70,8 +85,7 @@ def _ln_head_fwd(x, ln_scale, ln_bias, w, b):
     c = x.shape[-1]
     n = w.shape[-1]
     dt = x.dtype
-    if (c not in (32, 64, 128) or dt not in _build.DTYPE_CODES or w.ndim != 2 or n < 1
-            or (dt == torch.bfloat16 and n > 128)):
+    if not ln_head_eligible(c) or dt not in _build.DTYPE_CODES or w.ndim != 2 or n < 1:
         raise ValueError(f"ln_head: unsupported x {tuple(x.shape)} {dt}, w {tuple(w.shape)}")
     _build.check_operands("ln_head", x.device, ln_scale=(ln_scale, (c,)),
                           ln_bias=(ln_bias, (c,)), w=(w, (c, n)), b=(b, (n,)))

@@ -5,7 +5,10 @@ Replaces ``skoots_tpu/kernels/mlp.py::_mlp_call`` (body ``_kernel``). The
 Hopper kernel is ``csrc/mlp.cu``: the [V, 4C] hidden activation never
 reaches device memory; at bf16 both GEMMs run on the tensor cores and the
 erf-GELU epilogue on the FP32 pipe sets the pace, at f32 the GEMMs are
-scalar FP32 FMAs (see the source header).
+scalar FP32 FMAs (see the source header). It takes every width the JAX
+kernel takes (:func:`mlp_tail_eligible`): the tensor-core kernel C = 16,
+32, 64 and 128 at bf16, the f32 kernel 32, 64 and 128, a kernel with a
+run-time C every other width.
 
 Rounding points of both versions, to the model dtype ``dt`` (identity at
 f32), as at ``mlp.py:78-95`` of the TPU kernel: after the LayerNorm affine
@@ -29,6 +32,15 @@ import torch
 from skoots_tpu_torch.kernels import _build
 
 EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def mlp_tail_eligible(c: int) -> bool:
+    """The JAX package's width rule for its fused block tail
+    (``skoots_tpu/kernels/mlp.py::mlp_tail_eligible``): C % 8 == 0 and
+    C <= 256. Its volume conditions (a row tile that divides V, V >= 512)
+    are not mirrored: the kernels here take any V. The model runs flax's
+    plain composition at every other width, as JAX's does."""
+    return 0 < c <= 256 and c % 8 == 0
 
 
 def _rnd(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -59,7 +71,10 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     two-pass variance, every step in the CUDA kernels' order and rounding
     (``csrc/common.cuh::warp_layer_norm``)."""
     xf = x.float()
-    c = xf.shape[-1]
+    # the width as a tensor: IEEE division on every device (a Python number
+    # divides on CUDA as a multiply by its reciprocal, which differs from
+    # the kernels' division wherever C is no power of two)
+    c = xf.new_tensor(float(xf.shape[-1]))
     xc = xf - fold_sum(xf) / c
     var = fold_sum(xc * xc) / c
     inv = torch.sqrt(var + eps).reciprocal()
@@ -108,17 +123,17 @@ def _mlp_fwd(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
     _build.require_cuda(x, "mlp_block_tail")
     c = x.shape[-1]
     dt = x.dtype
-    if c not in (32, 64, 128) or dt not in _build.DTYPE_CODES or shortcut.dtype != dt:
+    if not mlp_tail_eligible(c) or dt not in _build.DTYPE_CODES or shortcut.dtype != dt:
         raise ValueError(f"mlp_block_tail: unsupported x {tuple(x.shape)} {dt}")
     _build.check_operands(
         "mlp_block_tail", x.device, shortcut=(shortcut, x.shape),
         ln_scale=(ln_scale, (c,)), ln_bias=(ln_bias, (c,)), w1=(w1, (c, 4 * c)),
         b1=(b1, (4 * c,)), w2=(w2, (4 * c, c)), b2=(b2, (c,)), gamma=(gamma, (c,)))
-    x2 = x.contiguous().view(-1, c)
-    s2 = shortcut.contiguous().view(-1, c)
+    # the kernels read 16-byte rows (``out`` is a fresh allocation)
+    x2, s2, w1c, w2c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+        x.contiguous().view(-1, c), shortcut.contiguous().view(-1, c),
+        w1.to(dt).contiguous(), w2.to(dt).contiguous()))
     vec = [_rnd(t.float(), dt).contiguous() for t in (ln_scale, ln_bias, b1, b2, gamma)]
-    w1c = w1.to(dt).contiguous()
-    w2c = w2.to(dt).contiguous()
     out = torch.empty_like(x2)
     code = _build.library().skoots_mlp_tail(
         _build.DTYPE_CODES[dt], x2.data_ptr(), s2.data_ptr(),

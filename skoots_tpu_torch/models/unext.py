@@ -17,9 +17,12 @@ matmul accumulates in f32 and rounds once to the model dtype, then its bias
 add rounds again.
 
 As in JAX (``unext.py:243-252``), a ConvNeXt block runs the fused tail
-kernel only for GELU with a layer scale and no active DropPath; otherwise
-(relu / silu / selu, ``LAYER_SCALE_INIT_VALUE`` 0, DropPath in training)
-it runs flax's plain composition in torch. DropPath drops a block's
+kernel only for GELU with a layer scale, no active DropPath and a width the
+kernel takes (``mlp_tail_eligible``: C % 8 == 0, C <= 256); otherwise
+(relu / silu / selu, ``LAYER_SCALE_INIT_VALUE`` 0, DropPath in training,
+another width) it runs flax's plain composition in torch. Likewise the
+final head (``unext.py:469-498``) runs the fused LN-head kernel where
+``ln_head_eligible`` holds and flax's LayerNorm and 1x1 conv elsewhere. DropPath drops a block's
 residual branch per sample (``where(keep, x / keep_prob, 0)``) in training
 only, with a mask drawn from the ``torch.Generator`` the caller passes to
 ``forward`` (the training step seeds it from ``TRAIN.SEED`` and the step;
@@ -38,8 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from skoots_tpu_torch.kernels.dwconv import dwconv3d
-from skoots_tpu_torch.kernels.lnhead import ln_head
-from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_eligible
+from skoots_tpu_torch.kernels.mlp import mlp_block_tail, mlp_tail_eligible
 from skoots_tpu_torch.kernels.upsample import upsample2x
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -197,8 +200,9 @@ class StemConv3D(DWConv3D):
 
 class ConvNeXtBlock3D(nn.Module):
     """Depthwise k^3 conv, then ``shortcut + drop(gamma * pw2(act(pw1(LN(.)))))``:
-    the fused tail kernel (kernels/mlp.py) for GELU with gamma and no
-    DropPath mask, else flax's plain composition (:meth:`plain_tail`)."""
+    the fused tail kernel (kernels/mlp.py) for GELU with gamma, no DropPath
+    mask and a width it takes, else flax's plain composition
+    (:meth:`plain_tail`)."""
 
     def __init__(self, dim: int, kernel_size: int = 7,
                  layer_scale_init: float = 1.0, drop_path: float = 0.0,
@@ -223,7 +227,8 @@ class ConvNeXtBlock3D(nn.Module):
         (no DropPath: eval, or a rate of 0)."""
         x = x.to(self.compute_dtype)
         h = self.dwconv(x)
-        if keep is None and self.activation == "gelu" and self.gamma is not None:
+        if keep is None and self.activation == "gelu" and self.gamma is not None \
+                and mlp_tail_eligible(h.shape[-1]):
             return mlp_block_tail(h, x, self.norm.weight, self.norm.bias,
                                   self.pw1.weight, self.pw1.bias,
                                   self.pw2.weight, self.pw2.bias, self.gamma)
@@ -364,8 +369,12 @@ class UNeXT3D(nn.Module):
             x = upsample2x(x)
             x = getattr(self, f"concat{s}")(x, skips[kd - 1 - s])
             x = self._stage(x, f"dec{s}", self.depths[kd + 1 + s], drop_gen)
-        return ln_head(x, self.final_norm.weight, self.final_norm.bias,
-                       self.head_conv.weight, self.head_conv.bias)
+        if ln_head_eligible(x.shape[-1]):
+            return ln_head(x, self.final_norm.weight, self.final_norm.bias,
+                           self.head_conv.weight, self.head_conv.bias)
+        dt = self.compute_dtype
+        h = flax_layer_norm(x, self.final_norm.weight, self.final_norm.bias, dt)
+        return dense(h, self.head_conv.weight, self.head_conv.bias, dt)
 
 
 class UNet3D(nn.Module):

@@ -3,7 +3,8 @@
 (shared-memory load + FMA rate in the depthwise conv's access pattern),
 ``bench_propagate`` (the propagate kernel's tile candidates) and
 ``bench_upsample`` (the upsample kernel's segment candidates). All need a
-CUDA card."""
+CUDA card. ``accuracy_campaign`` trains and scores the whole pipeline on
+six phantom scenarios (``--device``, default cuda)."""
 
 from __future__ import annotations
 

@@ -79,9 +79,10 @@ def nbytes(*tensors) -> int:
 
 
 def wgrad_bound(x, g, out):
-    """The weight gradient's least time: 343 products a cotangent value, on
-    the tensor cores at bf16 (exact in f32), on the FP32 pipe at f32."""
-    products = 2.0 * 343 * g.numel()
+    """The weight gradient's least time: k^3 products a cotangent value (k
+    from ``out`` ``[k, k, k, C]``), on the tensor cores at bf16 (exact in
+    f32), on the FP32 pipe at f32."""
+    products = 2.0 * out.shape[0] ** 3 * g.numel()
     ops = ({"tensor_flops": products} if x.dtype == torch.bfloat16
            else {"fp32_flops": products})
     return bound(nbytes(x, g, out), **ops)

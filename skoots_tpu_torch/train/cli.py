@@ -21,6 +21,7 @@ import logging
 import os
 import sys
 
+import numpy as np
 import torch
 
 log = logging.getLogger(__name__)
@@ -99,16 +100,41 @@ def run_config(cfg_path: str, device: str, steps_per_epoch=None):
             for host_batch in val_host(epoch):
                 yield augment(host_batch, gen)
 
-    writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-
-        writer = SummaryWriter()
-    except ImportError:
+    writer = summary_writer()
+    if writer is None:
         log.warning("tensorboard unavailable; scalar logging to the log only")
 
     return train(cfg, data_iter, device, val_data_iter, dataset_mean=mean,
                  dataset_std=std, writer=writer, object_radius=radius)
+
+
+def summary_writer(log_dir=None):
+    """TensorBoard's ``SummaryWriter`` (None without tensorboard), whose
+    ``add_image`` encodes the image with ``train/viz.py::png_bytes``:
+    torch's image summary imports Pillow, which the card's machine may
+    lack. It takes what the training panels are, uint8 RGB ``[H, W, 3]``
+    (``dataformats="HWC"``), and raises on anything else."""
+    try:
+        from tensorboard.compat.proto.summary_pb2 import Summary
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    from skoots_tpu_torch.train.viz import png_bytes
+
+    class Writer(SummaryWriter):
+        def add_image(self, tag, img_tensor, global_step=None, walltime=None,
+                      dataformats="CHW"):
+            img = np.asarray(img_tensor)
+            if img.dtype != np.uint8 or dataformats != "HWC" or img.ndim != 3 \
+                    or img.shape[-1] != 3:
+                raise ValueError(f"add_image takes uint8 [H, W, 3] HWC, got {img.dtype} "
+                                 f"{img.shape} {dataformats}")
+            image = Summary.Image(height=img.shape[0], width=img.shape[1], colorspace=3,
+                                  encoded_image_string=png_bytes(img))
+            self._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag=tag, image=image)]), global_step, walltime)
+
+    return Writer(log_dir)
 
 
 def main(argv=None) -> int:

@@ -5,11 +5,14 @@ flow rendering of the vector field / embedding probability / predicted +
 GT skeleton maps, stacked vertically in that order. The flow is an HSV
 wheel (hue = direction, saturation = magnitude) in numpy; the HSV -> RGB
 conversion is :func:`hsv_to_rgb`, numpy's own copy of
-``matplotlib.colors.hsv_to_rgb`` (no matplotlib needed).
+``matplotlib.colors.hsv_to_rgb`` (no matplotlib needed). The training CLI's
+writer encodes the panels with :func:`png_bytes` (no Pillow needed).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -55,6 +58,27 @@ def mask_overlay(mask: np.ndarray, prob: np.ndarray) -> np.ndarray:
 def _norm(x: np.ndarray) -> np.ndarray:
     lo, hi = float(x.min()), float(x.max())
     return (x - lo) / (hi - lo) if hi > lo else np.zeros_like(x)
+
+
+def png_bytes(image: np.ndarray) -> bytes:
+    """An ``[H, W, 3]`` uint8 RGB image as a PNG file: 8-bit samples, each
+    row filtered with filter type 0 (none), one zlib IDAT chunk.
+    TensorBoard's image summary takes any PNG; torch's encodes it with
+    Pillow, which this one does not need."""
+    image = np.ascontiguousarray(image, dtype=np.uint8)
+    h, w, c = image.shape
+    if c != 3:
+        raise ValueError(f"png_bytes takes [H, W, 3] RGB, got {image.shape}")
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * c)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))  # 2: RGB
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
 
 
 def write_progress(

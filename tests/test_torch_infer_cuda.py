@@ -206,6 +206,9 @@ def test_cuda_block_tail_matches_plain_version_at_ragged_shapes(cuda_device):
             a = [t.to(cuda_device) for t in args]
             for i in (0, 1, 4, 6):
                 a[i] = a[i].to(dt)
+            # x three elements into its buffer: rows off a 16-byte boundary
+            x = torch.empty(v * c + 3, dtype=dt, device=cuda_device)[3:].view(v, c)
+            a[0] = x.copy_(a[0])
             got, ref = mlp_block_tail(*a), mlp_block_tail_ref(*a)
             assert got.dtype == dt and got.shape == ref.shape
             torch.testing.assert_close(got.float(), ref.float(), atol=4e-3, rtol=1e-3)
@@ -235,3 +238,89 @@ def test_cuda_ln_head_matches_plain_version_at_ragged_shapes(cuda_device):
             assert torch.equal(got, ref), (v, c, n, dt, _bf16_ulps(got, ref))
     torch.cuda.synchronize()
     assert ln_head.launches == 2 * len(cases)
+
+
+@pytest.mark.cuda
+def test_cuda_tail_and_ln_head_at_every_width(cuda_device):
+    """Every width JAX's kernels take beyond the templates' (8, 24, 48, 96,
+    256: the run-time-width kernels) and the campaign's 16 (the tensor-core
+    templates), bf16 and f32, at a V no tile divides; the LN head also at
+    N = 200 and 256 (past the tensor-core kernel's 128); both on rows that
+    start off a 16-byte boundary. The tail at f32 within the Pallas test's
+    bound; at bf16 within 2 bf16 ulps of max(|plain|, rms(plain)): the
+    tail rounds at five points, and a sum in another order can flip the
+    rounding of y = gamma * pw2(...) and then of shortcut + y, two ulps
+    where |y| is as large as the output (gamma 0.5 here; at C = 256 one
+    value of 1,049,344 did so on the card). The LN head equal."""
+    rng = np.random.default_rng(8)
+    mlp_block_tail.launches = ln_head.launches = 0
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    widths = (8, 16, 24, 48, 96, 256)
+    for c in widths:
+        v = 4099
+        args = [f(v, c), f(v, c) * 0.1, f(c) * 0.1 + 1.0, f(c) * 0.1,
+                f(c, 4 * c) / c ** 0.5, f(4 * c) * 0.1, f(4 * c, c) / (2 * c ** 0.5),
+                f(c) * 0.1, torch.full((c,), 0.5)]
+        for dt in (torch.bfloat16, torch.float32):
+            a = [t.to(cuda_device) for t in args]
+            for i in (0, 1, 4, 6):
+                a[i] = a[i].to(dt)
+            # x three elements into its buffer: rows off a 16-byte boundary
+            x = torch.empty(v * c + 3, dtype=dt, device=cuda_device)[3:].view(v, c)
+            a[0] = x.copy_(a[0])
+            got, ref = mlp_block_tail(*a), mlp_block_tail_ref(*a)
+            assert got.dtype == dt and got.shape == ref.shape
+            if dt == torch.bfloat16:
+                assert _bf16_ulps(got, ref) <= 2.0, (c, _bf16_ulps(got, ref))
+            else:
+                torch.testing.assert_close(got, ref, atol=4e-3, rtol=1e-3)
+    head_cases = [(c, c) for c in widths] + [(48, 200), (16, 256), (32, 256)]
+    for c, n in head_cases:
+        args = [f(4099, c), f(c) * 0.1 + 1.0, f(c) * 0.1, f(c, n) / c ** 0.5, f(n) * 0.1]
+        for dt in (torch.bfloat16, torch.float32):
+            a = [t.to(cuda_device) for t in args]
+            # x three elements into its buffer: rows off a 16-byte boundary
+            x = torch.empty(4099 * c + 3, dtype=dt, device=cuda_device)[3:].view(4099, c)
+            a[0], a[3] = x.copy_(a[0]), a[3].to(dt)
+            got, ref = ln_head(*a), ln_head_ref(*a)
+            assert got.dtype == dt and got.shape == ref.shape
+            assert torch.equal(got, ref), (c, n, dt, _bf16_ulps(got, ref))
+    torch.cuda.synchronize()
+    assert mlp_block_tail.launches == 2 * len(widths)
+    assert ln_head.launches == 2 * len(head_cases)
+
+
+@pytest.mark.cuda
+def test_cuda_dwconv_at_every_odd_k(cuda_device):
+    """k = 9 and 11 (the run-time-k kernel): bf16 within 1 bf16 ulp, f32
+    within 1e-5 of max|plain|, the depthwise layer and the stem, batch 2 on
+    ragged X, Y, Z; and the bf16 input gradient against its plain
+    composition."""
+    rng = np.random.default_rng(9)
+    dwconv3d.launches = 0
+    cases = [((2, 9, 14, 11), 16, 16, 9), ((1, 12, 10, 13), 1, 16, 11),
+             ((1, 8, 9, 10), 64, 64, 9)]
+    for shape, cin, c, k in cases:
+        x32 = torch.from_numpy(rng.standard_normal((*shape, cin)).astype(np.float32))
+        w32 = torch.from_numpy((rng.standard_normal((k, k, k, c)) / k ** 1.5).astype(np.float32))
+        b32 = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32))
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(cuda_device, dt)
+            w, b = w32.to(cuda_device).to(dt).float(), b32.to(cuda_device).to(dt).float()
+            got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
+            assert got.dtype == dt and got.shape == ref.shape
+            if dt == torch.bfloat16:
+                assert _bf16_ulps(got, ref) <= 1.0, (shape, cin, k)
+            else:
+                err = float((got - ref).abs().max()) / float(ref.abs().max())
+                assert err <= 1e-5, (shape, cin, k, err)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 14, 11, 16)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16).requires_grad_()
+    w = torch.randn((9, 9, 9, 16), device=cuda_device).div(27.0).to(torch.bfloat16).float()
+    b = torch.zeros(16, device=cuda_device)
+    g = torch.randn(x.shape, device=cuda_device).to(torch.bfloat16)
+    (dx,) = torch.autograd.grad(dwconv3d(x, w, b), x, g)
+    want = dwconv3d_ref(g, torch.flip(w, (0, 1, 2)), b)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and _bf16_ulps(dx, want) <= 1.0
+    assert dwconv3d.launches == 2 * len(cases) + 2

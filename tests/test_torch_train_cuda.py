@@ -102,3 +102,51 @@ def test_cuda_every_parameter_gets_a_finite_gradient(cuda_device):
     for name, p in model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     assert dwconv3d_wgrad.launches == 6 and dwconv3d.launches == 6 + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 11])
+def test_cuda_wgrad_at_every_odd_k(cuda_device, k):
+    """k other than 3, 5 and 7 (the run-time-k kernel), bf16 and f32, the
+    depthwise layer and the stem's one input channel, over a ragged batch
+    of 2: within 1e-3 * max|plain|, the same from run to run."""
+    rng = np.random.default_rng(7 + k)
+    for cin, c, shape in ((16, 16, (2, 13, 11, 9)), (1, 16, (1, 12, 10, 8)),
+                          (64, 64, (1, 9, 8, 7))):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = T(rng.standard_normal((*shape, cin)).astype(np.float32)).to(cuda_device, dtype)
+            g = T(rng.standard_normal((*shape, c)).astype(np.float32)).to(cuda_device, dtype)
+            got = dwconv3d_wgrad(x, g, k)
+            ref = dwconv3d_wgrad_ref(x, g, k)
+            assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), (cin, dtype)
+            assert torch.equal(got, dwconv3d_wgrad(x, g, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,k", [((16, 32, 64, 32, 16), 7), ((24, 48, 24), 9),
+                                    ((12, 24, 12), 3)])
+def test_cuda_every_width_trains(cuda_device, dims, k):
+    """A train-mode forward and backward at the accuracy campaign's widths
+    (the tensor-core kernels at C = 16), at 24-48 with k = 9 (the
+    run-time-width and run-time-k kernels) and at 12 (flax's composition
+    where no kernel takes the width): every gradient finite; the block tail
+    launched once a block whose width it takes, the LN head only where its
+    width rule holds."""
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+
+    cfg = get_cfg_defaults()
+    cfg["MODEL"].update(DIMS=list(dims), DEPTHS=[1] * len(dims), KERNEL_SIZE=k,
+                        OUT_CHANNELS=dims[-1])
+    model = init_model(cfg, 0, device=cuda_device).train()
+    dwconv3d.launches = dwconv3d_wgrad.launches = 0
+    mlp_block_tail.launches = ln_head.launches = 0
+    x = torch.randn((1, 32, 32, 16, 1), device=cuda_device)
+    model(x).square().mean().backward()
+    torch.cuda.synchronize()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    blocks = len(dims) + 1  # the stem and one block a stage
+    assert dwconv3d_wgrad.launches == blocks and dwconv3d.launches == 2 * blocks - 1
+    assert mlp_block_tail.launches == sum(d % 8 == 0 for d in dims)
+    assert ln_head.launches == (dims[-1] % 8 == 0)

@@ -175,9 +175,11 @@ def test_stats_match_jax(tiny_ckpt):
 def test_get_flops_counts_the_unext_products(tiny_ckpt):
     """``get_flops`` of the tiny UNeXT's backbone equals
     ``analytic_unext_flops`` less the terms torch's counter does not see:
-    the elementwise ones (LayerNorms, GELU, layer scale, the upsample) and
-    the final 1x1 head, whose plain version adds its products in order
-    elementwise (``kernels/lnhead.py::ln_head_ref``), not as a matmul."""
+    the elementwise ones (LayerNorms, GELU, layer scale, the upsample). The
+    final 1x1 head is counted: at its width 4, which JAX's fused-head rule
+    refuses, it runs flax's LayerNorm and 1x1 conv as a matmul (the fused
+    head's plain version would add its products elementwise,
+    ``kernels/lnhead.py::ln_head_ref``)."""
     path, _ = tiny_ckpt
     model = model_from_checkpoint(load_checkpoint(path), device="cpu")
     dims, depths, k, out_ch = [4, 8, 16, 8, 4], [1, 2, 1, 1, 1], 3, 4
@@ -193,7 +195,6 @@ def test_get_flops_counts_the_unext_products(tiny_ckpt):
     non_products += sum(9 * vox[n_down - 1 - s] * dims[n_down + s]
                         for s in range(n_down))
     non_products += 10 * vox[0] * dims[-1]
-    non_products += 2 * vox[0] * dims[-1] * out_ch  # the head's in-order dots
     want = ts.analytic_unext_flops(dims, depths, k, out_ch, vox_n) - non_products
     assert got == want, (got, want)
 

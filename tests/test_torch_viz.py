@@ -199,3 +199,46 @@ def test_viz_imports_no_matplotlib():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _event_images(log_dir: Path) -> list:
+    """(tag, step, PNG bytes) of every image summary in a TensorBoard event
+    file: TFRecords of a length, its CRC, an ``Event``, the event's CRC."""
+    from tensorboard.compat.proto.event_pb2 import Event
+
+    out = []
+    for path in sorted(log_dir.glob("events.out.tfevents.*")):
+        data, pos = path.read_bytes(), 0
+        while pos < len(data):
+            n = int.from_bytes(data[pos:pos + 8], "little")
+            event = Event.FromString(data[pos + 12:pos + 12 + n])
+            pos += 16 + n
+            for v in event.summary.value:
+                if v.HasField("image"):
+                    out.append((v.tag, event.step, v.image.encoded_image_string))
+    return out
+
+
+def test_training_writer_encodes_panels_without_pillow(rng, tmp_path, monkeypatch):
+    """The training CLI's writer (``train/cli.py::summary_writer``) encodes
+    a panel as PNG itself: with Pillow blocked (the card's machine may have
+    none; torch's image summary imports it) the panel reaches the event
+    file, and decodes to the uint8 grid ``write_progress`` logged."""
+    from skoots_tpu_torch.train.cli import summary_writer
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    writer = summary_writer(str(tmp_path))
+    grid = viz.write_progress(writer, "Train", 3, **_panel_arrays(rng))
+    writer.close()
+    monkeypatch.delitem(sys.modules, "PIL")
+    from PIL import Image
+    import io
+
+    (tag, step, png), = _event_images(tmp_path)
+    assert (tag, step) == ("Train", 3)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(png))),
+                                  (grid * 255).astype(np.uint8))
+    img = rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(viz.png_bytes(img)))), img)
+    with pytest.raises(ValueError):
+        summary_writer(str(tmp_path)).add_image("Train", img[..., 0], 0, dataformats="HW")
