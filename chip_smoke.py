@@ -139,7 +139,19 @@ them. In order:
     propagation barred), F1 at IoU 0.5 >= 0.8; then propagate against its
     plain version on the run's validation skeleton, every CC round of it
     (0 voxels differing);
-18. prints one JSON line of per-kernel results (each with its least time on
+18. multi-device inference and training over meshes that repeat this one
+    card (the port's meshes may name a device more than once): after the
+    thrifty engine, ``run_sharded`` (the sharded pipeline on a 254x256x256
+    phantom at 1, 2 and 4 slabs, launches exact, the forward against 1
+    slab, the CC and walk exactly 1 slab's for both gathers and walks,
+    the reserved peak within the estimate also on the phantom's first 126
+    planes, every kernel against its plain version at every operand shape
+    the sharded runs gave it (whole 256^3 levels, slabs with their halos,
+    the CC's halo'd chunks), ``run_inference``'s shard resolution on one
+    card); after the resume,
+    ``run_dp_train`` (a data-2 step against the one-device step, 8 bf16
+    steps with exact launches, NCCL at world size 1);
+19. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -158,6 +170,7 @@ Every phase raises on failure; nothing here catches it. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -322,13 +335,13 @@ def bf16_ulps(got, ref) -> float:
     return float(((got.float() - ref.float()).abs() / ulp).max())
 
 
-def _time_ms(fn) -> float:
+def _time_ms(fn, repeats: int = REPEATS) -> float:
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -340,10 +353,16 @@ def _time_ms(fn) -> float:
 
 
 def _randn(rng, shape, scale=1.0, dtype=None, device="cuda"):
+    """Standard normal values times ``scale``: from a numpy generator on
+    the host, or from a ``torch.Generator`` on its own device (the large
+    cases, whose host draw would take seconds)."""
     import torch
 
-    t = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
-    t = t.to(device)
+    if isinstance(rng, torch.Generator):
+        t = torch.randn(shape, generator=rng, device=rng.device) * scale
+    else:
+        t = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+        t = t.to(device)
     return t.to(dtype) if dtype is not None else t
 
 
@@ -402,20 +421,168 @@ def _record(results, name, source, replaces, err, err_abs, tol, unit, ms,
                     "library_ms": library_ms, "_largest": least[0]})
 
 
-def check_kernels() -> list:
-    """Kernel vs plain version on the card at the main-path shapes."""
+def _check_dwconv(results, r, shape, cin, c, k, dtn, repeats=REPEATS) -> None:
+    """The depthwise conv at ``shape`` ([B, X, Y, Z]), ``cin`` -> ``c``
+    channels, ``k``, ``dtn`` on inputs from ``r``: bf16 within 1 bf16 ulp
+    of max(|plain|, rms(plain)), f32 within 1e-5 of max|plain| (f32 sums
+    of the same products in another order). Least work: bf16 taps on the
+    tensor cores (each product of two bf16 values is exact in f32), f32
+    taps on the FP32 pipe. Library call: cuDNN's conv3d on the
+    channels-last view (grouped per channel; the stem a dense 1 -> C)."""
     import torch
     import torch.nn.functional as F
 
     from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
+
+    bf = torch.bfloat16
+    dt = bf if dtn == "bf16" else torch.float32
+    x = _randn(r, (*shape, cin), dtype=dt)
+    w = _randn(r, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
+    b = _randn(r, (c,), 0.1).to(dt).float()
+    got = dwconv3d(x, w, b)
+    ref = dwconv3d_ref(x, w, b)
+    torch.cuda.synchronize()
+    err_abs = float((got.float() - ref.float()).abs().max())
+    if dt == bf:
+        err, tol, unit = bf16_ulps(got, ref), 1.0, "bf16 ulp"
+        ops = {"tensor_flops": 2.0 * k ** 3 * got.numel()}
+    else:
+        err, tol, unit = err_abs / float(ref.abs().max()), 1e-5, "of max|plain|"
+        ops = {"fp32_flops": 2.0 * k ** 3 * got.numel()}
+    del ref
+    xv = x.permute(0, 4, 1, 2, 3)
+    wl = w.permute(3, 0, 1, 2).unsqueeze(1).to(dt).contiguous()
+    bl = b.to(dt)
+    groups = 1 if cin == 1 else c
+    _record(results, "dwconv3d", "skoots_tpu_torch/csrc/dwconv.cu",
+            "skoots_tpu/kernels/dwconv.py:334", err, err_abs, tol,
+            f"{unit} at {tuple(x.shape)}->{c} k={k} {dtn}",
+            _time_ms(lambda: dwconv3d(x, w, b), repeats),
+            _time_ms(lambda: dwconv3d_ref(x, w, b), repeats),
+            bound(nbytes(x, w, b, got), **ops),
+            _time_ms(lambda: F.conv3d(xv, wl, bl, padding=k // 2, groups=groups), repeats))
+
+
+def _check_tail(results, r, v, c, dtn, repeats=REPEATS) -> None:
+    """The fused block tail at ``v`` rows of ``c`` channels; bound atol
+    4e-3, rtol 1e-3. Least work: the bytes, the two products on the
+    tensor cores, and the LayerNorm, GELU and roundings on the FP32 pipe
+    (TAIL_FP32_*). The plain composition xla_tail (two cuBLAS GEMMs and
+    elementwise kernels) is timed as a yardstick: no single library call
+    computes the function, so the JSON line's library_ms stays null."""
+    import torch
+
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail, mlp_block_tail_ref, xla_tail
+
+    bf = torch.bfloat16
+    dt = bf if dtn == "bf16" else torch.float32
+    x = _randn(r, (v, c), dtype=dt)
+    s = _randn(r, (v, c), 0.1, dtype=dt)
+    ls = _randn(r, (c,), 0.1) + 1.0
+    lb = _randn(r, (c,), 0.1)
+    w1 = _randn(r, (c, 4 * c), 1 / np.sqrt(c), dtype=dt)
+    b1 = _randn(r, (4 * c,), 0.1)
+    w2 = _randn(r, (4 * c, c), 1 / np.sqrt(4 * c), dtype=dt)
+    b2 = _randn(r, (c,), 0.1)
+    g = torch.full((c,), 0.1, device="cuda")
+    args = (x, s, ls, lb, w1, b1, w2, b2, g)
+    got = mlp_block_tail(*args)
+    ref = mlp_block_tail_ref(*args)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    err_abs = float(diff.max())
+    excess = float((diff - 1e-3 * ref.float().abs()).max())
+    del diff, ref
+    fp32 = v * c * (4 * TAIL_FP32_PER_HIDDEN + TAIL_FP32_PER_LN + TAIL_FP32_PER_OUT)
+    if dt == bf:
+        ops = {"tensor_flops": 16.0 * v * c * c, "fp32_flops": 2.0 * fp32}
+    else:
+        ops = {"fp32_flops": 16.0 * v * c * c + 2.0 * fp32}
+    comp_ms = _time_ms(lambda: xla_tail(*args), repeats)
+    _record(results, "mlp_block_tail", "skoots_tpu_torch/csrc/mlp.cu",
+            "skoots_tpu/kernels/mlp.py:99", excess, err_abs, 4e-3,
+            f"(|d| - 1e-3|ref|) at V={v} C={c} {dtn}",
+            _time_ms(lambda: mlp_block_tail(*args), repeats),
+            _time_ms(lambda: mlp_block_tail_ref(*args), repeats),
+            bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
+
+
+def _check_ln_head(results, r, v, c, n, dtn, repeats=REPEATS) -> None:
+    """The fused final LN + 1x1 head at ``v`` rows, ``c`` -> ``n``: equal
+    to the plain version (bf16: the tensor cores' sums whose rounding their
+    order could change are recomputed in the plain order; f32: the plain
+    order). Least work: the bytes, the products on the tensor cores (bf16)
+    or the FP32 pipe (f32), and the LayerNorm on the FP32 pipe
+    (TAIL_FP32_PER_LN). The plain composition xla_ln_head (a cuBLAS GEMM
+    and elementwise kernels) is timed as a yardstick: no single library
+    call computes the function, so the JSON line's library_ms stays null."""
+    import torch
+
     from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_ref, xla_ln_head
-    from skoots_tpu_torch.kernels.mlp import (
-        mlp_block_tail,
-        mlp_block_tail_ref,
-        xla_tail,
-    )
-    from skoots_tpu_torch.kernels.propagate import launch_plan, propagate, propagate_ref
+
+    bf = torch.bfloat16
+    dt = bf if dtn == "bf16" else torch.float32
+    x = _randn(r, (v, c), dtype=dt)
+    ls = _randn(r, (c,), 0.1) + 1.0
+    lb = _randn(r, (c,), 0.1)
+    w = _randn(r, (c, n), 1 / np.sqrt(c), dtype=dt)
+    b = _randn(r, (n,), 0.1)
+    args = (x, ls, lb, w, b)
+    got = ln_head(*args)
+    ref = ln_head_ref(*args)
+    torch.cuda.synchronize()
+    differing = int((got != ref).sum())
+    err_abs = float((got.float() - ref.float()).abs().max())
+    ulps = bf16_ulps(got, ref)
+    del ref
+    fp32 = 2.0 * v * c * TAIL_FP32_PER_LN
+    if dt == bf:
+        ops = {"tensor_flops": 2.0 * v * c * n, "fp32_flops": fp32}
+    else:
+        ops = {"fp32_flops": 2.0 * v * c * n + fp32}
+    comp_ms = _time_ms(lambda: xla_ln_head(*args), repeats)
+    _record(results, "ln_head", "skoots_tpu_torch/csrc/lnhead.cu",
+            "skoots_tpu/kernels/lnhead.py:53", float(differing), err_abs, 0.0,
+            f"values differing ({ulps:.3g} bf16 ulp) at V={v} C={c}->{n} {dtn}",
+            _time_ms(lambda: ln_head(*args), repeats),
+            _time_ms(lambda: ln_head_ref(*args), repeats),
+            bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
+
+
+def _check_upsample(results, r, shape, dt, repeats=REPEATS) -> None:
+    """The 2x trilinear upsample of a ``shape`` ([B, X, Y, Z, C]) tensor
+    of ``dt``: 0 differing bits. Least work: read the input, write the
+    output and the separable cascade's 3 operations per blend (42 per
+    input element). Library call: F.interpolate on the channels-last view
+    (the same function, computed another way)."""
+    import torch
+    import torch.nn.functional as F
+
     from skoots_tpu_torch.kernels.upsample import upsample2x, upsample2x_ref
+
+    x = _randn(r, shape, dtype=dt)
+    got = upsample2x(x)
+    ref = upsample2x_ref(x)
+    torch.cuda.synchronize()
+    bits = int((got != ref).sum())
+    err_abs = float((got.float() - ref.float()).abs().max())
+    del ref
+    xv = x.permute(0, 4, 1, 2, 3)
+    _record(results, "upsample2x", "skoots_tpu_torch/csrc/upsample.cu",
+            "skoots_tpu/kernels/upsample.py:98", float(bits), err_abs, 0.0,
+            f"values differing at {tuple(shape)} {str(dt)[6:]}",
+            _time_ms(lambda: upsample2x(x), repeats),
+            _time_ms(lambda: upsample2x_ref(x), repeats),
+            bound(nbytes(x, got), fp32_flops=42.0 * x.numel()),
+            _time_ms(lambda: F.interpolate(xv, scale_factor=2, mode="trilinear",
+                                           align_corners=False), repeats))
+
+
+def check_kernels() -> list:
+    """Kernel vs plain version on the card at the main-path shapes."""
+    import torch
+
+    from skoots_tpu_torch.kernels.propagate import launch_plan, propagate, propagate_ref
     from skoots_tpu_torch.tools.bench_propagate import (
         SPARSE_PASSES,
         active_share,
@@ -432,115 +599,15 @@ def check_kernels() -> list:
     def record(*args, **kwargs):
         _record(results, *args, **kwargs)
 
-    # 1. depthwise conv (DWCONV_CASES): bf16 within 1 bf16 ulp of
-    #    max(|plain|, rms(plain)), f32 within 1e-5 of max|plain| (f32 sums
-    #    of the same products in another order). Least work: bf16 taps on
-    #    the tensor cores (each product of two bf16 values is exact in f32),
-    #    f32 taps on the FP32 pipe. Library call: cuDNN's conv3d on the
-    #    channels-last view (grouped per channel; the stem a dense 1 -> C)
-    for i, (shape, cin, c, k, dtn) in enumerate(DWCONV_CASES + CAMPAIGN_DWCONV_CASES):
-        r = rng if i < len(DWCONV_CASES) else extra
-        dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(r, (*shape, cin), dtype=dt)
-        w = _randn(r, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
-        b = _randn(r, (c,), 0.1).to(dt).float()
-        got = dwconv3d(x, w, b)
-        ref = dwconv3d_ref(x, w, b)
-        torch.cuda.synchronize()
-        err_abs = float((got.float() - ref.float()).abs().max())
-        if dt == bf:
-            err, tol, unit = bf16_ulps(got, ref), 1.0, "bf16 ulp"
-            ops = {"tensor_flops": 2.0 * k ** 3 * got.numel()}
-        else:
-            err, tol, unit = err_abs / float(ref.abs().max()), 1e-5, "of max|plain|"
-            ops = {"fp32_flops": 2.0 * k ** 3 * got.numel()}
-        xv = x.permute(0, 4, 1, 2, 3)
-        wl = w.permute(3, 0, 1, 2).unsqueeze(1).to(dt).contiguous()
-        bl = b.to(dt)
-        groups = 1 if cin == 1 else c
-        record("dwconv3d", "skoots_tpu_torch/csrc/dwconv.cu",
-               "skoots_tpu/kernels/dwconv.py:334", err, err_abs, tol,
-               f"{unit} at {tuple(x.shape)}->{c} k={k} {dtn}",
-               _time_ms(lambda: dwconv3d(x, w, b)),
-               _time_ms(lambda: dwconv3d_ref(x, w, b)),
-               bound(nbytes(x, w, b, got), **ops),
-               _time_ms(lambda: F.conv3d(xv, wl, bl, padding=k // 2, groups=groups)))
-        del x, got, ref, xv
-
-    # 2. fused block tail (TAIL_CASES); bound atol 4e-3, rtol 1e-3. Least
-    #    work: the bytes, the two products on the tensor cores, and the
-    #    LayerNorm, GELU and roundings on the FP32 pipe (TAIL_FP32_*). The
-    #    plain composition xla_tail (two cuBLAS GEMMs and elementwise
-    #    kernels) is timed as a yardstick: no single library call computes
-    #    the function, so the JSON line's library_ms stays null
-    for i, (v, c, dtn) in enumerate(TAIL_CASES + CAMPAIGN_TAIL_CASES):
-        r = rng if i < len(TAIL_CASES) else extra
-        dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(r, (v, c), dtype=dt)
-        s = _randn(r, (v, c), 0.1, dtype=dt)
-        ls = _randn(r, (c,), 0.1) + 1.0
-        lb = _randn(r, (c,), 0.1)
-        w1 = _randn(r, (c, 4 * c), 1 / np.sqrt(c), dtype=dt)
-        b1 = _randn(r, (4 * c,), 0.1)
-        w2 = _randn(r, (4 * c, c), 1 / np.sqrt(4 * c), dtype=dt)
-        b2 = _randn(r, (c,), 0.1)
-        g = torch.full((c,), 0.1, device="cuda")
-        args = (x, s, ls, lb, w1, b1, w2, b2, g)
-        got = mlp_block_tail(*args)
-        ref = mlp_block_tail_ref(*args)
-        torch.cuda.synchronize()
-        diff = (got.float() - ref.float()).abs()
-        err_abs = float(diff.max())
-        excess = float((diff - 1e-3 * ref.float().abs()).max())
-        fp32 = v * c * (4 * TAIL_FP32_PER_HIDDEN + TAIL_FP32_PER_LN + TAIL_FP32_PER_OUT)
-        if dt == bf:
-            ops = {"tensor_flops": 16.0 * v * c * c, "fp32_flops": 2.0 * fp32}
-        else:
-            ops = {"fp32_flops": 16.0 * v * c * c + 2.0 * fp32}
-        comp_ms = _time_ms(lambda: xla_tail(*args))
-        record("mlp_block_tail", "skoots_tpu_torch/csrc/mlp.cu",
-               "skoots_tpu/kernels/mlp.py:99", excess, err_abs, 4e-3,
-               f"(|d| - 1e-3|ref|) at V={v} C={c} {dtn}",
-               _time_ms(lambda: mlp_block_tail(*args)),
-               _time_ms(lambda: mlp_block_tail_ref(*args)),
-               bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
-        del args, x, s, got, ref, diff
-
-    # 3. fused final LN + 1x1 head (LN_HEAD_CASES): equal to the plain
-    #    version (bf16: the tensor cores' sums whose rounding their order could
-    #    change are recomputed in the plain order; f32: the plain order). Least
-    #    work: the bytes, the products on the tensor cores (bf16) or the FP32
-    #    pipe (f32), and the LayerNorm on the FP32 pipe (TAIL_FP32_PER_LN).
-    #    The plain composition xla_ln_head (a cuBLAS GEMM and elementwise
-    #    kernels) is timed as a yardstick: no single library call computes
-    #    the function, so the JSON line's library_ms stays null
-    for i, (v, c, n, dtn) in enumerate(LN_HEAD_CASES + CAMPAIGN_LN_HEAD_CASES):
-        r = rng if i < len(LN_HEAD_CASES) else extra
-        dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(r, (v, c), dtype=dt)
-        ls = _randn(r, (c,), 0.1) + 1.0
-        lb = _randn(r, (c,), 0.1)
-        w = _randn(r, (c, n), 1 / np.sqrt(c), dtype=dt)
-        b = _randn(r, (n,), 0.1)
-        args = (x, ls, lb, w, b)
-        got = ln_head(*args)
-        ref = ln_head_ref(*args)
-        torch.cuda.synchronize()
-        differing = int((got != ref).sum())
-        err_abs = float((got.float() - ref.float()).abs().max())
-        fp32 = 2.0 * v * c * TAIL_FP32_PER_LN
-        if dt == bf:
-            ops = {"tensor_flops": 2.0 * v * c * n, "fp32_flops": fp32}
-        else:
-            ops = {"fp32_flops": 2.0 * v * c * n + fp32}
-        comp_ms = _time_ms(lambda: xla_ln_head(*args))
-        record("ln_head", "skoots_tpu_torch/csrc/lnhead.cu",
-               "skoots_tpu/kernels/lnhead.py:53", float(differing), err_abs, 0.0,
-               f"values differing ({bf16_ulps(got, ref):.3g} bf16 ulp) at V={v} "
-               f"C={c}->{n} {dtn}",
-               _time_ms(lambda: ln_head(*args)), _time_ms(lambda: ln_head_ref(*args)),
-               bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
-        del args, x, got, ref
+    # 1.-3. the depthwise conv, the fused block tail and the fused final
+    #    LN + 1x1 head at their cases (_check_dwconv, _check_tail,
+    #    _check_ln_head say each one's bound, least work and library call)
+    for i, case in enumerate(DWCONV_CASES + CAMPAIGN_DWCONV_CASES):
+        _check_dwconv(results, rng if i < len(DWCONV_CASES) else extra, *case)
+    for i, case in enumerate(TAIL_CASES + CAMPAIGN_TAIL_CASES):
+        _check_tail(results, rng if i < len(TAIL_CASES) else extra, *case)
+    for i, case in enumerate(LN_HEAD_CASES + CAMPAIGN_LN_HEAD_CASES):
+        _check_ln_head(results, rng if i < len(LN_HEAD_CASES) else extra, *case)
 
     # 4. label propagation, Q = 4 passes, 26-conn, over the whole volume;
     #    exact. Foreground: 30% random voxels, which percolate, so labels
@@ -596,28 +663,11 @@ def check_kernels() -> list:
     torch.cuda.empty_cache()
 
     # 5. 2x trilinear upsample at the decoder shapes of the bench tile, the
-    #    host engine's tile and the training crop (batch 2), bf16 and f32:
-    #    0 differing bits. Least work: read the input, write the output and
-    #    the separable cascade's 3 operations per blend (42 per input
-    #    element). Library call: F.interpolate on the channels-last view
-    #    (the same function, computed another way)
+    #    host engine's tile and the training crop (batch 2), bf16 and f32
+    #    (_check_upsample)
     for i, shape in enumerate(UPSAMPLE_SHAPES + CAMPAIGN_UPSAMPLE_SHAPES):
         for dt in (bf, torch.float32):
-            x = _randn(rng if i < len(UPSAMPLE_SHAPES) else extra, shape, dtype=dt)
-            got = upsample2x(x)
-            ref = upsample2x_ref(x)
-            torch.cuda.synchronize()
-            bits = int((got != ref).sum())
-            err_abs = float((got.float() - ref.float()).abs().max())
-            xv = x.permute(0, 4, 1, 2, 3)
-            record("upsample2x", "skoots_tpu_torch/csrc/upsample.cu",
-                   "skoots_tpu/kernels/upsample.py:98", float(bits), err_abs, 0.0,
-                   f"values differing at {shape} {str(dt)[6:]}",
-                   _time_ms(lambda: upsample2x(x)), _time_ms(lambda: upsample2x_ref(x)),
-                   bound(nbytes(x, got), fp32_flops=42.0 * x.numel()),
-                   _time_ms(lambda: F.interpolate(xv, scale_factor=2, mode="trilinear",
-                                                  align_corners=False)))
-            del x, got, ref, xv
+            _check_upsample(results, rng if i < len(UPSAMPLE_SHAPES) else extra, shape, dt)
     torch.cuda.empty_cache()
     return results
 
@@ -1145,7 +1195,7 @@ def run_thrifty_engine(results: list, vol_u8, tile_bytes: int) -> None:
     CC round; the phases JSON's engine, the instance count."""
     import torch
 
-    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.infer import engine, sharded
     from skoots_tpu_torch.infer.device_pipeline import estimated_device_bytes
     from skoots_tpu_torch.kernels import propagate as prop_mod
     from skoots_tpu_torch.utils.synthetic import tube_segments
@@ -1191,9 +1241,9 @@ def run_thrifty_engine(results: list, vol_u8, tile_bytes: int) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     target = (est["device"] + est["device-thrifty"]) // 2
-    ballast = torch.empty(engine._device_bytes_limit(dev) - target, dtype=torch.uint8,
+    ballast = torch.empty(sharded.device_bytes_limit(dev) - target, dtype=torch.uint8,
                           device=dev)
-    print(f"auto: a {ballast.numel()} B ballast leaves {engine._device_bytes_limit(dev)} B "
+    print(f"auto: a {ballast.numel()} B ballast leaves {sharded.device_bytes_limit(dev)} B "
           f"free (estimates {json.dumps(est)})", flush=True)
     try:
         stats = run("auto", "auto", 1)
@@ -2619,6 +2669,380 @@ def check_campaign_propagate(results: list, skel_path: str, cc_crop: tuple,
     _need(rounds == cc_rounds, f"campaign CC: {rounds} rounds here, {cc_rounds} in the run")
 
 
+SHARDED_VOLUME = (254, 256, 256)  # X not a multiple of lcm(4, n) for n = 1, 2, 4
+SHARDED_MESHES = (1, 2, 4)
+SHARDED_MODES = (("ring", "ring"), ("ring", "replicated"), ("replicated", "replicated"))
+# a second volume, the phantom's first 126 planes, whose reserved peak the
+# estimate must hold too (the factor RESERVED_PER_LIVE_BYTE was fitted on
+# SHARDED_VOLUME)
+SHARDED_SECOND_X = 126
+# timing repeats of the kernel checks at the sharded runs' operand shapes
+# (the largest are whole 256^3 volumes, whose plain versions take seconds)
+SHARDED_REPEATS = 3
+
+
+@contextlib.contextmanager
+def _kernel_operands(seen: dict):
+    """While open, record the operands of every launch of the forward
+    kernels and of the sharded CC's propagate: ``seen[name]`` a set of the
+    ``_check_*`` arguments (shapes, channels, k, dtype), and
+    ``seen["propagate"]`` a copy of the first labels and mask of each
+    (shape, passes). Each wrapper still launches once a call."""
+    import torch
+
+    from skoots_tpu_torch.infer import sharded
+    from skoots_tpu_torch.kernels import dwconv, lnhead, mlp, upsample
+
+    def dtn(t):
+        return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+    saved = {(dwconv, "_dwconv3d_fwd"): None, (mlp, "_mlp_fwd"): None,
+             (lnhead, "_ln_head_fwd"): None, (upsample, "_upsample2x_fwd"): None,
+             (sharded, "propagate"): None}
+    for key in saved:
+        saved[key] = getattr(*key)
+    for name in ("dwconv3d", "mlp_block_tail", "ln_head", "upsample2x"):
+        seen.setdefault(name, set())
+    seen.setdefault("propagate", {})
+
+    def dw(x, w, b):
+        seen["dwconv3d"].add((tuple(x.shape[:-1]), x.shape[-1], w.shape[-1], w.shape[0],
+                              dtn(x)))
+        return saved[dwconv, "_dwconv3d_fwd"](x, w, b)
+
+    def tail(x, *args):
+        seen["mlp_block_tail"].add((x.numel() // x.shape[-1], x.shape[-1], dtn(x)))
+        return saved[mlp, "_mlp_fwd"](x, *args)
+
+    def head(x, ls, lb, w, b):
+        seen["ln_head"].add((x.numel() // x.shape[-1], x.shape[-1], w.shape[-1], dtn(x)))
+        return saved[lnhead, "_ln_head_fwd"](x, ls, lb, w, b)
+
+    def up(x):
+        seen["upsample2x"].add((tuple(x.shape), x.dtype))
+        return saved[upsample, "_upsample2x_fwd"](x)
+
+    def prop(labels, fg, passes=4, **kwargs):
+        key = (tuple(labels.shape), passes)
+        if key not in seen["propagate"]:
+            seen["propagate"][key] = (labels.clone(), fg.clone())
+        return saved[sharded, "propagate"](labels, fg, passes=passes, **kwargs)
+
+    for (mod, attr), fn in zip(saved, (dw, tail, head, up, prop)):
+        setattr(mod, attr, fn)
+    try:
+        yield seen
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def _check_sharded_kernels(results: list, seen: dict) -> None:
+    """Every kernel at every operand shape the sharded runs gave it
+    (:func:`_kernel_operands`), against its plain version at the bounds
+    of :func:`check_kernels`: the forward kernels on seeded inputs drawn
+    on the card, the CC's propagate on the labels and mask of the chunk it
+    labelled (0 voxels differing; least time as row 4b's)."""
+    import torch
+
+    from skoots_tpu_torch.kernels.propagate import propagate, propagate_ref
+    from skoots_tpu_torch.tools.bench_propagate import sparse_bound_ms
+
+    r = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for case in sorted(seen["dwconv3d"]):
+        _check_dwconv(results, r, *case, repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+    for case in sorted(seen["mlp_block_tail"]):
+        _check_tail(results, r, *case, repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+    for case in sorted(seen["ln_head"]):
+        _check_ln_head(results, r, *case, repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+    for shape, dt in sorted(seen["upsample2x"], key=str):
+        _check_upsample(results, r, shape, dt, repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+    for (shape, passes), (lab, fg) in sorted(seen["propagate"].items()):
+        def plain(lab=lab, fg=fg, passes=passes):
+            out = lab
+            for _ in range(passes):
+                out = propagate_ref(out, fg)
+            return out
+
+        got = propagate(lab, fg, passes=passes)
+        differing = float((got != plain()).sum())
+        _record(results, "propagate", "skoots_tpu_torch/csrc/propagate.cu",
+                "skoots_tpu/kernels/propagate.py:93", differing, differing, 0.0,
+                f"voxels differing on a sharded CC chunk {shape}, {passes} passes, "
+                f"{int(fg.sum())} fg voxels",
+                _time_ms(lambda: propagate(lab, fg, passes=passes), SHARDED_REPEATS),
+                _time_ms(plain, SHARDED_REPEATS), (sparse_bound_ms(fg, passes), "bytes"))
+    seen.clear()
+    torch.cuda.empty_cache()
+
+
+def run_sharded(results: list) -> None:
+    """The sharded pipeline (``infer/sharded.py``) with the bench checkpoint
+    at full width (bf16) on a seeded ``SHARDED_VOLUME`` tube phantom (uint8
+    host array) over meshes of 1, 2 and 4 slabs, all on this one card
+    (``make_mesh(1, n, ["cuda:0"] * n)``), each driven through
+    ``make_sharded_pipeline(...)(volume)`` with the launch counts set to 0
+    just before and read just after: every forward kernel once a slab a
+    module, propagate ``len(launch_plan(q))`` a slab a halo exchange ``q``
+    a CC round, the plain propagation barred. Prints the phase times, the
+    reserved peak a voxel beside the estimate (which must hold it: on this
+    volume that check is the point ``RESERVED_PER_LIVE_BYTE`` was fitted
+    to, not a test of it; the first ``SHARDED_SECOND_X`` planes at 1 and 4
+    slabs are the check at a volume it was not fitted to), the forward's
+    bitwise-equal share against 1 slab (decisions >= 0.995), the
+    instance count inside the phantom's bar and the agreement with 1 slab
+    (>= 0.99). Then the CC
+    and assignment of 2 and 4 slabs on the 1-slab forward's outputs, for
+    both label gathers and both walks, equal to 1 slab's exactly; every
+    kernel at every operand shape the driven runs gave it against its plain
+    version (:func:`_check_sharded_kernels`); and
+    ``run_inference(spatial_shards=2)`` raising JAX's "needs that many
+    devices" on this one-card machine, while auto resolves to 0."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.infer import engine, sharded
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.models import model_from_checkpoint
+    from skoots_tpu_torch.parallel import make_mesh
+    from skoots_tpu_torch.utils.device import resolve_devices
+    from skoots_tpu_torch.utils.synthetic import render_tubes, tube_segments
+
+    ckpt_path = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    ckpt = load_checkpoint(ckpt_path)
+    model = model_from_checkpoint(ckpt, device="cuda")
+    mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
+    scale = tuple(ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"])
+    shape = SHARDED_VOLUME
+    vox = int(np.prod(shape))
+    n_target = max(6, int(48 * vox / 512**3))
+    p0, p1, n_expected = tube_segments(shape, n_target, radius=5.0, seed=7)
+    vol = render_tubes(shape, p0, p1, radius=5.0, device="cuda").round()
+    vol = vol.to(torch.uint8).cpu().numpy()
+    fwd_bpv = engine._forward_bytes_per_voxel(model, 0.8, torch.device("cuda"))
+    print(f"sharded: phantom {shape} uint8, {n_expected} tubes placed; forward probe "
+          f"{engine.FORWARD_PROBE}: {fwd_bpv} bytes a voxel ({engine.RESERVED_PER_LIVE_BYTE} x "
+          "its live peak)", flush=True)
+
+    # one undriven 1-slab run first, so each driven run's phases are warm
+    sharded.make_sharded_pipeline(model, make_mesh(1, 1, ["cuda:0"]), shape,
+                                  vector_scale=scale)(vol, mean, std)
+    ref, seen = {}, {}
+    for n in SHARDED_MESHES:
+        mesh = make_mesh(1, n, ["cuda:0"] * n)
+        run = sharded.make_sharded_pipeline(model, mesh, shape, vector_scale=scale)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        with _kernel_operands(seen):
+            inst, counts, wall = _drive(f"sharded [{n} slab(s)]",
+                                        lambda: run(vol, mean, std), results)
+        reserved = torch.cuda.max_memory_reserved() - base
+        # one card holds every slab: n devices' estimates
+        est = n * sharded.estimated_bytes_per_device(shape, n, run.walk_gather, fwd_bpv)
+        per_round = sum(len(prop_mod.launch_plan(q)) for q in run.cc.hop_chunks)
+        want = {k: v * n for k, v in FORWARD_KERNELS_PER_TILE.items()}
+        want["propagate"] = run.cc.last_rounds * n * per_round
+        n_inst = len(np.unique(inst)) - 1
+        print(f"sharded [{n}]: slabs {run.bounds} of the padded {run.padded_shape}, walk "
+              f"{run.walk_gather}, phases {json.dumps(run.last_phase_s)}, e2e {wall:.3f} s; "
+              f"CC {run.cc.last_rounds} rounds of {run.cc.hop_chunks} hops a halo exchange; "
+              f"{n_inst} instances of {n_expected} placed; reserved peak {reserved} B = "
+              f"{reserved / vox:.1f} B a voxel, estimate {est / vox:.1f} B a voxel "
+              f"(n x estimated_bytes_per_device with the forward's {fwd_bpv})", flush=True)
+        _need(counts == want, f"sharded [{n}]: launches {counts}, expected {want}")
+        _need(reserved <= est, f"sharded [{n}]: reserved {reserved} B above the estimate {est}")
+        _need(0.8 * n_expected <= n_inst <= n_expected + 4,
+              f"sharded [{n}]: {n_inst} instances outside [0.8*{n_expected}, {n_expected}+4]")
+        vec, packed = run.fwd(sharded.shard_volume(
+            np.pad(vol.astype(np.float32), [(0, p - d) for p, d in zip(run.padded_shape, shape)],
+                   mode="reflect"), mesh, 0, run.bounds), mean, std)
+        vec, packed = vec.whole(), packed.whole()
+        if n == 1:
+            ref = {"vec": vec, "packed": packed, "inst": inst, "run": run}
+            continue
+        vec_eq = float((vec.view(torch.int16) == ref["vec"].view(torch.int16)).all(-1)
+                       .float().mean())
+        dec = {b: float((((packed >> b) & 1) == ((ref["packed"] >> b) & 1)).float().mean())
+               for b in (0, 1)}
+        agree = float((inst == ref["inst"]).mean())
+        fg = (inst > 0) | (ref["inst"] > 0)
+        agree_fg = float((inst == ref["inst"])[fg].mean())
+        print(f"sharded [{n}] vs 1 slab: vectors bitwise equal at {vec_eq:.6f} of the voxels, "
+              f"decisions (bit 0, bit 1) {dec[0]:.6f}, {dec[1]:.6f}; instances equal at "
+              f"{agree:.6f} of the voxels ({agree_fg:.6f} of the foreground)", flush=True)
+        _need(min(dec.values()) >= 0.995, f"sharded [{n}]: decisions agree at {dec}")
+        _need(agree >= 0.99, f"sharded [{n}]: instances agree at {agree}")
+
+    # the CC and the assignment on identical inputs: exactly 1 slab's
+    labels1 = ref["run"].cc(ref["packed"]).whole()
+    inst1 = ref["run"].assign(labels1, ref["vec"], ref["packed"]).whole()
+    for n in SHARDED_MESHES[1:]:
+        mesh = make_mesh(1, n, ["cuda:0"] * n)
+        for lg, wg in SHARDED_MODES:
+            run = sharded.make_sharded_pipeline(model, mesh, shape, vector_scale=scale,
+                                                label_gather=lg, walk_gather=wg)
+            labels = run.cc(ref["packed"])
+            inst = run.assign(labels, ref["vec"], ref["packed"])
+            same = torch.equal(labels.whole(), labels1) and torch.equal(inst.whole(), inst1)
+            print(f"sharded [{n}] {lg} labels / {wg} walk on the 1-slab forward: CC "
+                  f"{run.cc.last_rounds} rounds, labels and instances "
+                  f"{'equal' if same else 'DIFFERENT'}", flush=True)
+            _need(same, f"sharded [{n}] {lg}/{wg}: CC or assignment differs from 1 slab's")
+    del labels1, inst1, labels, inst, run
+    ref.pop("run")
+
+    # the estimate at a volume its factor was not fitted to
+    second = np.ascontiguousarray(vol[:SHARDED_SECOND_X])
+    for n in (1, 4):
+        run = sharded.make_sharded_pipeline(model, make_mesh(1, n, ["cuda:0"] * n),
+                                            second.shape, vector_scale=scale)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        run(second, mean, std)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.max_memory_reserved() - base
+        est = n * sharded.estimated_bytes_per_device(second.shape, n, run.walk_gather, fwd_bpv)
+        sv = second.size
+        print(f"sharded [{n}] {second.shape}: reserved peak {reserved} B = "
+              f"{reserved / sv:.1f} B a voxel, estimate {est / sv:.1f} B a voxel", flush=True)
+        _need(reserved <= est, f"sharded [{n}] {second.shape}: reserved {reserved} B above "
+              f"the estimate {est}")
+    del run, second
+    torch.cuda.empty_cache()
+
+    _check_sharded_kernels(results, seen)
+
+    # run_inference on this one-card machine: 2 shards raise, auto picks 0
+    work = os.path.join(ROOT, "build", "sharded_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "phantom.npy")
+    np.save(path, vol)
+    try:
+        engine.run_inference(path, ckpt_path, spatial_shards=2)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    _, devices = resolve_devices("cuda")
+    auto = sharded.resolve_spatial_shards(None, len(devices), shape,
+                                          sharded.device_bytes_limit(devices[0]))
+    print(f"run_inference(spatial_shards=2) on {len(devices)} card(s): raised {raised!r}; "
+          f"auto resolves to {auto}", flush=True)
+    _need("needs that many devices, have 1" in raised and auto == 0,
+          "run_inference's shard resolution on one card")
+    shutil.rmtree(work, ignore_errors=True)
+    del model, ref
+    torch.cuda.empty_cache()
+
+
+def run_dp_train(results: list, records) -> None:
+    """Data-parallel training over ``make_mesh(2, 1, ["cuda:0"] * 2)`` at
+    the training cell: one f32 step of batch 2 (dice as the embedding
+    loss, DropPath 0.1: the masks drawn for the whole batch) against the
+    one-device step from the same weights (loss 1e-4 relative, every
+    gradient 1e-3 * max), then 8 bf16 steps of the cell's cfg at batch 2 on
+    one augmented batch with the launches counted (every kernel once a
+    shard), the loss falling. Then ``setup_process`` with NCCL at world
+    size 1 and a broadcast from process 0."""
+    import torch
+
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+    from skoots_tpu_torch.kernels.upsample import upsample2x
+    from skoots_tpu_torch.models import init_model
+    from skoots_tpu_torch.parallel import distributed, make_mesh
+    from skoots_tpu_torch.train.engine import (
+        cfg_optimizer,
+        drop_path_generator,
+        make_train_step,
+    )
+    from skoots_tpu_torch.train.sigma import init_sigma
+
+    base, augment, host_batches, _, _ = _train_cell(records)
+    gen = torch.Generator().manual_seed(base["TRAIN"]["SEED"])
+    one = [augment(host_batches[i], gen) for i in range(2)]
+    batch = {k: torch.cat([b[k] for b in one]) for k in one[0]}
+    mesh = make_mesh(2, 1, ["cuda:0"] * 2)
+
+    runs = []
+    for m in (None, mesh):
+        cfg = _bench_train_cfg()
+        cfg["MODEL"].update(DTYPE="float32", DROP_PATH_RATE=0.1)
+        cfg["TRAIN"].update(LOSS_EMBED="dice", TRAIN_BATCH_SIZE=2)
+        model = init_model(cfg, SEED, device="cuda").train()
+        opt, sched = cfg_optimizer(cfg, model.parameters())
+        step = make_train_step(model, opt, sched, init_sigma(cfg), cfg, m)
+        total, _ = step.loss_fn(batch, 1, drop_path_generator(SEED, 0))
+        total.backward()
+        runs.append((float(total.detach()), {n: p.grad.float() for n, p in
+                                             model.named_parameters()}))
+    (l1, g1), (l2, g2) = runs
+    worst = max(float((g2[n] - g1[n]).abs().max()) / max(float(g1[n].abs().max()), 1e-30)
+                for n in g1)
+    print(f"data-parallel f32 step (2 x batch 1 on cuda:0 twice) vs one device at batch 2: "
+          f"loss {l2:.8g} vs {l1:.8g} (rel {abs(l2 - l1) / abs(l1):.3g}, bound 1e-4); "
+          f"worst gradient {worst:.3g} of its max (bound 1e-3)", flush=True)
+    _need(abs(l2 - l1) <= 1e-4 * abs(l1) and worst <= 1e-3,
+          "the data-parallel step differs from the one-device step")
+
+    cfg = _bench_train_cfg()
+    cfg["TRAIN"]["TRAIN_BATCH_SIZE"] = 2
+    model = init_model(cfg, SEED, device="cuda").train()
+    opt, sched = cfg_optimizer(cfg, model.parameters())
+    step = make_train_step(model, opt, sched, init_sigma(cfg), cfg, mesh)
+    with torch.no_grad():
+        first = float(step.loss_fn(batch, 0)[0])
+    kernels = {"dwconv3d": dwconv3d, "dwconv3d_wgrad": dwconv3d_wgrad,
+               "mlp_block_tail": mlp_block_tail, "ln_head": ln_head, "upsample2x": upsample2x}
+
+    def eight_steps():
+        times = []
+        for _ in range(8):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(batch, 0)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return times
+
+    times, counts, _ = _drive("data-parallel train (2 shards)", eight_steps, results, kernels)
+    with torch.no_grad():
+        final = float(step.loss_fn(batch, 0)[0])
+    # a shard: 11 dwconv forwards and 10 input gradients, 11 weight
+    # gradients, 10 block tails, 1 LN head, 2 upsamples
+    want = {k: 8 * 2 * v for k, v in {"dwconv3d": 21, "dwconv3d_wgrad": 11,
+                                      "mlp_block_tail": 10, "ln_head": 1,
+                                      "upsample2x": 2}.items()}
+    print(f"data-parallel bf16 steps (ms): {[round(t, 3) for t in times]}, warm median "
+          f"{np.median(times[1:]):.3f}; loss {first:.6f} -> {final:.6f}", flush=True)
+    _need(counts == want, f"data-parallel launches {counts}, expected {want}")
+    _need(np.isfinite(final) and final < first, "the data-parallel loss did not fall")
+
+    port = distributed.find_free_port()
+    rank = distributed.setup_process(f"127.0.0.1:{port}", 1, 0)  # NCCL on a card
+    try:
+        _need(torch.distributed.is_initialized() and rank == 0, "NCCL did not initialise")
+        got = distributed.broadcast_from_host0(np.array([3, 1, 4], np.int64))
+    finally:
+        distributed.cleanup()
+    print(f"setup_process (nccl, world size 1): rank {rank}, broadcast {got.tolist()}",
+          flush=True)
+    _need(got.tolist() == [3, 1, 4], "the broadcast from process 0 differs")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2661,10 +3085,12 @@ def main() -> int:
     run_thrifty_engine(results, vol_u8, tile_bytes)
     del vol_u8
     torch.cuda.empty_cache()
+    run_sharded(results)
     check_grads_against_cpu()
     records = run_train_slice(results)
     unet_ckpt = run_train_variants(results, records)
     run_resume(records)
+    run_dp_train(results, records)
     run_unet_inference(results, unet_ckpt)
     sparse_ckpt = run_sparse_train(results, run_skeletonize(
         [(r.image, r.masks) for r in records]))

@@ -3,8 +3,10 @@ surface of ``skoots_tpu/cli.py:26-196`` on the PyTorch/CUDA port.
 
 Every argument of the JAX CLI is accepted, plus ``--device`` (default
 ``cuda``; ``--device cpu`` runs every kernel's plain version on the CPU).
-``--spatial-shards`` > 1 is not ported yet and raises
-``NotImplementedError``; see ROADMAP.md.
+``--spatial-shards`` shards the volume's X axis over the devices
+(``infer/sharded.py``): ``cuda`` means every visible card, and a comma
+list names the mesh's devices (``--device cpu,cpu,cpu,cpu``; they may
+repeat).
 
     python -m skoots_tpu_torch --image vol.tif --pretrained-checkpoint m.skoots
     python -m skoots_tpu_torch --skeletonize-train-data DIR [--skeletonize-method lee]
@@ -128,7 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "eval.py:245-310)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; without a "
-                        "CUDA card this raises unless --device cpu is given)")
+                        "CUDA card this raises unless --device cpu is given); "
+                        "a comma list names the devices --spatial-shards "
+                        "shards over")
     p.add_argument("--experimental", action="store_true",
                    help="use the experimental tuned knob set (prob 0.5, "
                         "3x 2D dilation, decaying embedding walk — reference "

@@ -31,12 +31,17 @@ Both drop speck instances, renumber, and write ``<image>_instance_mask.tif``
 ``<image>_skoots_phases.json`` (the stage split). A sparse checkpoint's
 semantic gate comes from a probe of the volume itself
 (:func:`_probe_semantic_threshold`), else from the threshold the checkpoint
-records, else ``prob_threshold``. Spatial sharding is not ported yet and
-raises ``NotImplementedError`` (see ROADMAP.md) instead of being ignored.
+records, else ``prob_threshold``.
+
+``spatial_shards > 1`` (or ``None``, auto, with several devices) runs the
+sharded pipeline (``infer/sharded.py``) over that many of the call's
+devices instead: ``device`` may be a list (entries may repeat, e.g.
+``["cpu"] * 4``), and a single CUDA device means every visible card.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -61,6 +66,7 @@ from skoots_tpu_torch.infer.device_pipeline import (
     make_thrifty_pipeline,
     tile_masks,
 )
+from skoots_tpu_torch.infer import sharded
 from skoots_tpu_torch.models import model_from_checkpoint
 from skoots_tpu_torch.ops.cropper import (
     bucketed_crop_size,
@@ -75,16 +81,23 @@ from skoots_tpu_torch.ops.flood_fill import (
     widen_u16,
 )
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
-from skoots_tpu_torch.utils.device import resolve_device
+from skoots_tpu_torch.parallel import make_mesh
+from skoots_tpu_torch.utils.device import resolve_devices
 from skoots_tpu_torch.utils.io import imread, imsave, open_outofcore
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED = "is not ported to skoots_tpu_torch yet (see ROADMAP.md)"
-
 # the stage split of the most recent run_inference call (also written to
 # <image>_skoots_phases.json)
 last_stats: dict = {}
+
+# the forward probe that sizes a slab's activations for the sharded estimate
+FORWARD_PROBE = (128, 128, 64)
+# what the caching allocator reserves for each byte a slab's forward holds at
+# once: whole-slab activations of several sizes split and round its segments
+# (an H100 80GB HBM3 at its 700 W limit reserved 1.25-1.64x the live peak
+# at 1-4 slabs of a 254x256x256 volume)
+RESERVED_PER_LIVE_BYTE = 2
 
 # 'auto' takes the host-streaming engine up to this many voxels
 HOST_ENGINE_MAX_VOXELS = 256**3
@@ -446,16 +459,6 @@ def _stream_stats(volume) -> Tuple[float, float]:
     return m, max(tot_sq / n - m * m, 1e-8) ** 0.5
 
 
-def _device_bytes_limit(device: torch.device) -> Optional[int]:
-    """The device memory this process can still allocate: the card's free
-    memory and the blocks the allocator holds unused. None off a card (no
-    device limit exists, as JAX reports none on the CPU)."""
-    if device.type != "cuda":
-        return None
-    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-    return torch.cuda.mem_get_info(device)[0] + cached
-
-
 def _forward_tile_bytes(model, crops, prob_threshold, sem_thr, dilation_3d,
                         dilation_2d, device: torch.device) -> int:
     """Device memory that one forward tile needs: the segments the caching
@@ -477,6 +480,26 @@ def _forward_tile_bytes(model, crops, prob_threshold, sem_thr, dilation_3d,
         del out
     torch.cuda.synchronize(device)
     return torch.cuda.max_memory_reserved(device) - base
+
+
+def _forward_bytes_per_voxel(model, prob_threshold: float, device: torch.device) -> int:
+    """The bytes a voxel of a sharded forward's slab needs on the card: the
+    peak of the bytes one probe forward of :data:`FORWARD_PROBE` (with the
+    sharded pipeline's fixed dilation stack) holds at once, which the
+    allocator's statistics give whatever its cache holds, times
+    :data:`RESERVED_PER_LIVE_BYTE`; 0 off a card."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        out = model(torch.zeros((1, *FORWARD_PROBE, 1), device=device))[0]
+        tile_masks(out, prob_threshold, prob_threshold, 1, 2)
+        del out
+    torch.cuda.synchronize(device)
+    live = torch.cuda.max_memory_allocated(device) - base
+    return -(-RESERVED_PER_LIVE_BYTE * live // int(np.prod(FORWARD_PROBE)))
 
 
 def _device_geometry(volume_shape, crop, crop_size, overlap, assign_crop_size):
@@ -566,14 +589,20 @@ def run_inference(
     ``SKOOTS_WIRE_MODE``): 'store' keeps the f16 vector field for phase 3,
     'recompute' runs the forward again per assign tile; 'auto' recomputes
     out of core. Returns the instance mask ``[X, Y, Z]`` int32, labelled
-    1..N (a memmap when out of core)."""
-    device = resolve_device(device)
+    1..N (a memmap when out of core).
+
+    ``spatial_shards`` (JAX's): ``None`` is auto — the sharded pipeline over
+    every device of the call when there are several and the volume fits
+    (``sharded.resolve_spatial_shards``), else 0; ``> 1`` shards X that many
+    ways (raising when the call has fewer devices, or when even the ring
+    estimate exceeds a card's free memory); 0 or 1 runs the engines above.
+    The sharded pipeline writes ``<image>_skoots_benchmark.txt`` and the
+    phases JSON, then drops specks, renumbers and writes the mask."""
+    device, mesh_devices = resolve_devices(device)
     engine_impl = os.environ.get("SKOOTS_ENGINE", "") or engine_impl
     if engine_impl not in ("auto", "host", "device", "device-thrifty"):
         raise ValueError(
             f"engine_impl {engine_impl!r} not in auto/host/device/device-thrifty")
-    if spatial_shards is not None and spatial_shards > 1:
-        raise NotImplementedError(f"--spatial-shards > 1 {_NOT_PORTED}")
 
     notrace = os.environ.get("SKOOTS_NO_TRACEMALLOC", "") not in ("", "0")
     owns_tracing = (not notrace) and not tracemalloc.is_tracing()
@@ -603,6 +632,25 @@ def run_inference(
             mean, std = _stream_stats(volume)
         vec_scale = tuple(cfg["SKOOTS"]["VECTOR_SCALING"])
         anisotropy = tuple(cfg["SKOOTS"]["ANISOTROPY"])
+
+        fwd_bpv = functools.cache(
+            lambda: _forward_bytes_per_voxel(model, prob_threshold, device))
+        if spatial_shards is None:
+            # auto (the CLI default): shard over every device when >1 is
+            # present and the volume fits the sharded pipeline's per-device
+            # ceiling; otherwise use the engines below
+            limit = sharded.device_bytes_limit(mesh_devices[0])
+            spatial_shards = sharded.resolve_spatial_shards(
+                None, len(mesh_devices), (x, y, z), limit,
+                fwd_bpv() if limit is not None and len(mesh_devices) > 1 else 0)
+        if spatial_shards and spatial_shards > 1:
+            return _run_sharded(
+                model, volume, mean, std, mesh_devices, spatial_shards, stats,
+                vec_scale, prob_threshold, embed_iterations,
+                semantic_threshold if semantic_threshold is not None else
+                (None if calibrated_thr is None else float(calibrated_thr)),
+                fwd_bpv, stem, owns_tracing, min_instance_size,
+                output_path or _default_mask_path(image_path))
 
         # canonical tile shapes: short axes round UP to the bucket ladder
         # (reflect-padded); the overlap keeps the stride >= crop / 2
@@ -677,7 +725,7 @@ def run_inference(
         if (engine_impl == "auto" and not cache_hit
                 and requested_out_of_core is not True
                 and x * y * z > HOST_ENGINE_MAX_VOXELS):
-            limit = _device_bytes_limit(device)
+            limit = sharded.device_bytes_limit(device)
             if limit is not None:
                 dev_crop, _, dev_assign = _device_geometry(
                     (x, y, z), crop, crop_size, overlap, assign_crop_size)
@@ -832,6 +880,58 @@ def run_inference(
     finally:
         if owns_tracing and tracemalloc.is_tracing():
             tracemalloc.stop()
+
+
+def _run_sharded(model, volume, mean, std, mesh_devices, spatial_shards, stats,
+                 vec_scale, prob_threshold, embed_iterations, semantic_threshold,
+                 fwd_bpv, stem, owns_tracing, min_instance_size, out_path):
+    """``run_inference``'s sharded branch (JAX's ``engine.py:639-713``)."""
+    x, y, z = volume.shape
+    n_dev = len(mesh_devices)
+    if n_dev < spatial_shards:
+        raise ValueError(
+            f"--spatial-shards {spatial_shards} needs that many devices, "
+            f"have {n_dev}"
+        )
+    limit = sharded.device_bytes_limit(mesh_devices[0])
+    if limit is not None:
+        # the pipeline auto-degrades its walk to ring gathers when the
+        # replicated field doesn't fit, so the hard bar is the RING
+        # estimate (everything O(vox/n)), with the forward's own need.
+        # Fail with the remedy instead of running out of memory.
+        need = sharded.estimated_bytes_per_device((x, y, z), spatial_shards, "ring",
+                                                  fwd_bpv())
+        if need > limit:
+            raise ValueError(
+                f"--spatial-shards {spatial_shards}: this volume needs "
+                f"~{need / 1e9:.1f} GB/device even in the sharded "
+                f"pipeline's ring-gathered mode but devices have "
+                f"{limit / 1e9:.1f} GB. Use the host-streaming engine "
+                "(--spatial-shards 0), whose phase 3 is O(tile), or "
+                "more devices."
+            )
+    mesh = make_mesh(data=1, space=spatial_shards, devices=mesh_devices[:spatial_shards])
+    if semantic_threshold is not None:
+        log.info("semantic gate: threshold %.6f", semantic_threshold)
+    run = sharded.make_sharded_pipeline(
+        model, mesh, (x, y, z), vector_scale=vec_scale,
+        prob_threshold=prob_threshold, embed_iterations=embed_iterations,
+        semantic_threshold=semantic_threshold,
+    )
+    bench_start = time.time()
+    instance_mask = run(volume, mean, std)
+    dt = time.time() - bench_start
+    stats.update(engine="sharded", spatial_shards=spatial_shards,
+                 devices=[str(d) for d in mesh_devices[:spatial_shards]],
+                 walk_gather=run.walk_gather, phases=run.last_phase_s,
+                 cc_rounds=run.cc.last_rounds, cc_converged=run.cc.last_converged,
+                 e2e_s=round(dt, 3))
+    _write_reports(stem, stats, dt, owns_tracing)
+    instance_mask, _ = drop_small_instances(np.asarray(instance_mask), min_instance_size)
+    instance_mask, _ = renumber(instance_mask)
+    imsave(out_path, instance_mask.astype(np.int32))
+    log.info("sharded (%d-way) segmentation took %.2fs -> %s", spatial_shards, dt, out_path)
+    return instance_mask
 
 
 def _assign(volume, vectors, semantic_u8, labeled, instance_mask, model, mean,

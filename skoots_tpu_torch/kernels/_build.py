@@ -8,6 +8,12 @@ The library is loaded with :mod:`ctypes`: pointers and the CUDA stream pass
 as ``c_void_p``; every entry point returns ``cudaGetLastError()`` and
 :func:`check` raises on a non-zero code. A failed build raises; nothing
 falls back to another implementation.
+
+The CUDA side keys its per-device set-up (occupancy, shared-memory opt-in,
+launch plans) on the *current* device, so every wrapper that calls into the
+library is decorated with :func:`on_device`, which makes its first tensor's
+card current for the call. Launch from one thread: those per-device caches
+are not thread-safe.
 """
 
 from __future__ import annotations
@@ -142,6 +148,22 @@ def library() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def on_device(fn):
+    """Decorate a kernel wrapper whose first argument is a tensor: on a CUDA
+    tensor the call runs with that tensor's card current
+    (``torch.cuda.device``), so the library's per-device set-up and its
+    launches address the card the operands lie on; a CPU call runs as it
+    is."""
+    @functools.wraps(fn)
+    def wrapper(t, *args, **kwargs):
+        if t.device.type != "cuda":
+            return fn(t, *args, **kwargs)
+        with torch.cuda.device(t.device):
+            return fn(t, *args, **kwargs)
+
+    return wrapper
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -65,6 +65,7 @@ def bake_skeleton_ref(
     return baked.reshape(*shape, 3), dist.reshape(shape)
 
 
+@_build.on_device
 def bake_skeleton_kernel(
     masks: torch.Tensor,
     points: torch.Tensor,

@@ -71,6 +71,7 @@ def _check_conv_operands(what: str, x: torch.Tensor, c: int, k: int) -> None:
                          f"k={k}, C={c}")
 
 
+@_build.on_device
 def _dwconv3d_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One forward launch (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":
@@ -108,6 +109,7 @@ def dwconv3d_wgrad_ref(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor
     return dw[:, 0].permute(1, 2, 3, 0).contiguous()
 
 
+@_build.on_device
 def dwconv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     """Depthwise weight gradient (f32 ``[k, k, k, C]``): the plain version
     for a CPU tensor, the CUDA kernel for a CUDA tensor (raises on what the

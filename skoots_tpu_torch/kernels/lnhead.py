@@ -77,6 +77,7 @@ def xla_ln_head(x, ln_scale, ln_bias, w, b, eps: float = EPS):
     return torch.matmul(h, w) + b
 
 
+@_build.on_device
 def _ln_head_fwd(x, ln_scale, ln_bias, w, b):
     """One kernel launch (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":

@@ -44,6 +44,7 @@ def fma_chain_ref(a: torch.Tensor, b: torch.Tensor, iters: int = N_ITER) -> torc
     return x
 
 
+@_build.on_device
 def fma_chain(a: torch.Tensor, b: torch.Tensor, iters: int = N_ITER,
               chains: int = 1) -> torch.Tensor:
     """The FMA chain of every element of ``a`` (f32 or bf16, any shape; on
@@ -93,6 +94,7 @@ def loadfma_ref(buf: torch.Tensor, w: torch.Tensor, dynamic: bool,
     return accs[0]
 
 
+@_build.on_device
 def loadfma(buf: torch.Tensor, w: torch.Tensor, dynamic: bool, chains: int,
             reps: int = 1) -> torch.Tensor:
     """``[reps, 64, 16, 128]``: ``reps`` copies of the tool's output (on the

@@ -115,6 +115,7 @@ def xla_tail(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
     return shortcut + y * gamma.to(dt)
 
 
+@_build.on_device
 def _mlp_fwd(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
     """One kernel launch (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":

@@ -49,6 +49,7 @@ def launch_plan(passes: int, qmax: int = QMAX) -> list[int]:
     return [qmax] * full + ([rest] if rest else [])
 
 
+@_build.on_device
 def propagate(labels: torch.Tensor, fg: torch.Tensor, passes: int = 4,
               connectivity: int = 26, library=None,
               scratch: torch.Tensor | None = None) -> torch.Tensor:

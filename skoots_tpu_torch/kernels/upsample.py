@@ -76,6 +76,7 @@ def upsample2x_ref(x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+@_build.on_device
 def _upsample2x_fwd(x: torch.Tensor) -> torch.Tensor:
     """One launch (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":

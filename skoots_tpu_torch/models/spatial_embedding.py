@@ -40,7 +40,11 @@ class SpatialEmbedding(nn.Module):
 
     def _forward(self, x: torch.Tensor,
                  drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        feat = self.backbone(x, drop_gen)
+        return self.heads(self.backbone(x, drop_gen))
+
+    def heads(self, feat: torch.Tensor) -> torch.Tensor:
+        """The 5-channel output from backbone features (pointwise, so a
+        sharded forward runs it on each slab)."""
         heads = (self.vector_head, self.skeleton_head, self.semantic_head)
         # the three 1x1 heads as one matmul: each output column is its own
         # f32 dot product, so the columns equal three separate convs

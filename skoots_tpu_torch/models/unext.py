@@ -95,6 +95,17 @@ def flax_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     g = x.float().reshape(x.shape[0], -1, groups, c // groups)
     mean = g.mean((1, 3), keepdim=True)
     var = (g.square().mean((1, 3), keepdim=True) - mean.square()).clamp_min(0.0)
+    return group_norm_apply(x, mean, var, scale, bias, groups, dt, eps)
+
+
+def group_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                     dt: torch.dtype, eps: float = LN_EPS) -> torch.Tensor:
+    """:func:`flax_group_norm` given its f32 statistics ``mean`` and ``var``
+    (``[B, 1, groups, 1]``), which a sharded forward reduces over every
+    slab before it normalises any."""
+    c = x.shape[-1]
+    g = x.float().reshape(x.shape[0], -1, groups, c // groups)
     y = (g - mean) * (torch.rsqrt(var + eps) * scale.view(groups, c // groups))
     y = y + bias.view(groups, c // groups)
     return y.reshape(x.shape).to(dt)
@@ -293,13 +304,49 @@ class ConcatConv3D(nn.Module):
         return dense(y, self.fuse.weight, self.fuse.bias, self.compute_dtype)
 
 
-def _drop_keep(gen: Optional[torch.Generator], module: nn.Module, rate: float,
+class DropPathMasks:
+    """DropPath keep masks drawn ahead for a whole batch, handed out in
+    block order: ``draw(gen, blocks, batch, rate)`` takes from ``gen`` what
+    a forward of ``batch`` samples would (one ``[batch]`` draw a block, in
+    forward order), and ``shard(start, size)`` gives the masks of the
+    samples ``start:start + size``. Passed to ``forward`` in place of the
+    generator, each block takes the next mask, so a batch split over
+    several forwards (data-parallel training) drops what the whole batch
+    would."""
+
+    def __init__(self, masks, start: int = 0, size: Optional[int] = None):
+        self.masks = masks
+        self.start = start
+        self.size = size
+        self.used = 0
+
+    @classmethod
+    def draw(cls, gen: torch.Generator, blocks: int, batch: int,
+             rate: float) -> "DropPathMasks":
+        return cls([torch.rand(batch, generator=gen) < 1.0 - rate for _ in range(blocks)])
+
+    def shard(self, start: int, size: int) -> "DropPathMasks":
+        return DropPathMasks(self.masks, start, size)
+
+    def next(self, batch: int, device) -> torch.Tensor:
+        m = self.masks[self.used]
+        self.used += 1
+        size = len(m) if self.size is None else self.size
+        if size != batch:
+            raise ValueError(f"DropPath masks for {size} samples, the block has {batch}")
+        return m[self.start:self.start + size].to(device)
+
+
+def _drop_keep(gen, module: nn.Module, rate: float,
                batch: int, device) -> Optional[torch.Tensor]:
     """One DropPath keep mask (bool ``[batch]``, ``P(keep) = 1 - rate``)
-    drawn on the host from ``gen``, or None outside training, without a
-    generator or at rate 0."""
+    drawn on the host from ``gen`` (a ``torch.Generator``, or the next of a
+    :class:`DropPathMasks`), or None outside training, without a generator
+    or at rate 0."""
     if gen is None or not module.training or rate <= 0:
         return None
+    if isinstance(gen, DropPathMasks):
+        return gen.next(batch, device)
     return (torch.rand(batch, generator=gen) < 1.0 - rate).to(device)
 
 
@@ -369,6 +416,10 @@ class UNeXT3D(nn.Module):
             x = upsample2x(x)
             x = getattr(self, f"concat{s}")(x, skips[kd - 1 - s])
             x = self._stage(x, f"dec{s}", self.depths[kd + 1 + s], drop_gen)
+        return self.head(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm and 1x1 conv (pointwise)."""
         if ln_head_eligible(x.shape[-1]):
             return ln_head(x, self.final_norm.weight, self.final_norm.bias,
                            self.head_conv.weight, self.head_conv.bias)
@@ -419,6 +470,11 @@ class UNet3D(nn.Module):
             c = stage(f"dec{s}", c + dims[kd - 1 - s], dims[d], depths[d])
         self.head_conv = Dense(c, out_channels, device)
 
+    @staticmethod
+    def pool(x: torch.Tensor) -> torch.Tensor:
+        """The 2^3 max pool (stride 2) of the encoder."""
+        return F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2).permute(0, 2, 3, 4, 1)
+
     def _stage(self, x, name, depth):
         for i in range(depth):
             x = getattr(self, f"{name}_conv{i}")(x)
@@ -436,10 +492,14 @@ class UNet3D(nn.Module):
         for s in range(kd):
             x = self._stage(x, f"enc{s}", self.depths[s])
             skips.append(x)
-            x = F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2).permute(0, 2, 3, 4, 1)
+            x = self.pool(x)
         x = self._stage(x, "bottleneck", self.depths[kd])
         for s in range(kd):
             x = upsample2x(x)
             x = torch.cat([x, skips[kd - 1 - s].to(x.dtype)], dim=-1)
             x = self._stage(x, f"dec{s}", self.depths[kd + 1 + s])
+        return self.head(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The 1x1 head conv (pointwise)."""
         return dense(x, self.head_conv.weight, self.head_conv.bias, self.compute_dtype)

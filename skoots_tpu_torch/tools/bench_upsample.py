@@ -29,6 +29,7 @@ CANDIDATES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 48)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 
 
+@_build.on_device
 def launch(x: torch.Tensor, out: torch.Tensor, planes: int) -> None:
     b, xs, ys, zs, c = x.shape
     code = _build.library().skoots_upsample2x(

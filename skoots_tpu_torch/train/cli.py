@@ -7,9 +7,13 @@ training CLI (port of ``skoots_tpu/train/cli.py``).
 Loads and validates the YAML cfg (the JAX package's schema), builds the
 datasets, augments every batch on ``--device`` and trains there; a cfg with
 ``EXPERIMENTAL.IS_SPARSE`` trains sparse
-(``experimental/sparse_engine.py::train_sparse``). One device only: a mesh
-(``SYSTEM.MESH_DATA`` other than -1 or 1, ``MESH_SPACE`` other than 1) of
-dense training raises ``NotImplementedError``. The device is explicit
+(``experimental/sparse_engine.py::train_sparse``, on one device). Dense
+training takes JAX's mesh (``SYSTEM.MESH_DATA``, ``MESH_SPACE``): the
+data axis is ``MESH_DATA``, or for -1 the largest divisor of the batch
+that the devices allow, and with more than one device the step runs
+data-parallel over them from this process (``train/engine.py``).
+``--device cuda`` means every visible card; a comma list names the
+devices (``--device cpu,cpu``; they may repeat). The device is explicit
 (default ``cuda``); nothing falls back to the CPU.
 """
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 import argparse
 import glob
 import logging
+import math
 import os
 import sys
 
@@ -37,11 +42,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-epoch", type=int, default=None,
                    help="override steps per epoch (default: dataset length / batch size)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to train on (default cuda)")
+                   help="torch device to train on (default cuda: every visible "
+                        "card for a mesh); a comma list names the mesh's devices")
     return p
 
 
-def run_config(cfg_path: str, device: str, steps_per_epoch=None):
+def train_mesh(cfg: dict, devices: list):
+    """JAX's mesh for dense training (``skoots_tpu/train/cli.py:91-123``):
+    ``data = MESH_DATA``, or ``gcd(batch, n_devices // MESH_SPACE)`` for -1;
+    a mesh over the first ``data * space`` devices when that is above 1,
+    else None. Raises where the data axis does not divide the batch."""
+    from skoots_tpu_torch.parallel import make_mesh
+
+    bsz = cfg["TRAIN"]["TRAIN_BATCH_SIZE"]
+    space = cfg["SYSTEM"]["MESH_SPACE"]
+    if cfg["SYSTEM"]["MESH_DATA"] != -1:
+        data_axis = cfg["SYSTEM"]["MESH_DATA"]
+    else:
+        # data axis must divide the global batch; use as many devices as fit
+        data_axis = math.gcd(bsz, max(len(devices) // space, 1))
+    if data_axis < 1 or bsz % data_axis:
+        raise ValueError(f"SYSTEM.MESH_DATA {data_axis} does not divide "
+                         f"TRAIN.TRAIN_BATCH_SIZE {bsz}")
+    if data_axis * space <= 1:
+        return None
+    mesh = make_mesh(data=data_axis, space=space, devices=devices[:data_axis * space])
+    log.info("mesh: %s over %d devices", dict(mesh.shape), data_axis * space)
+    return mesh
+
+
+def run_config(cfg_path: str, device, steps_per_epoch=None):
     from skoots_tpu_torch.config import load_cfg_from_file
     from skoots_tpu_torch.train.data import (
         MultiDataset,
@@ -52,16 +82,16 @@ def run_config(cfg_path: str, device: str, steps_per_epoch=None):
     from skoots_tpu_torch.train.engine import train
     from skoots_tpu_torch.train.transforms import make_batch_augment
 
+    from skoots_tpu_torch.utils.device import resolve_devices
+
     cfg = load_cfg_from_file(cfg_path)
     t = cfg["TRAIN"]
+    device, devices = resolve_devices(device)
     if cfg["EXPERIMENTAL"]["IS_SPARSE"]:
         from skoots_tpu_torch.experimental.sparse_engine import train_sparse
 
         return train_sparse(cfg, steps_per_epoch=steps_per_epoch, device=device)
-    if cfg["SYSTEM"]["MESH_DATA"] not in (-1, 1) or cfg["SYSTEM"]["MESH_SPACE"] != 1:
-        raise NotImplementedError(
-            "the port trains on one device: SYSTEM.MESH_DATA must be -1 or 1 and "
-            "SYSTEM.MESH_SPACE 1 (multi-GPU is queued in ROADMAP.md)")
+    mesh = train_mesh(cfg, devices)
 
     datasets = [SkootsDataset(d, cfg, sample_per_image=s)
                 for d, s in zip(t["TRAIN_DATA_DIR"], t["TRAIN_SAMPLE_PER_IMAGE"])]
@@ -105,7 +135,7 @@ def run_config(cfg_path: str, device: str, steps_per_epoch=None):
         log.warning("tensorboard unavailable; scalar logging to the log only")
 
     return train(cfg, data_iter, device, val_data_iter, dataset_mean=mean,
-                 dataset_std=std, writer=writer, object_radius=radius)
+                 dataset_std=std, writer=writer, object_radius=radius, mesh=mesh)
 
 
 def summary_writer(log_dir=None):

@@ -2,8 +2,16 @@
 and its per-epoch learning rate, the train and eval steps, and the epoch
 loop.
 
-One device, explicit: nothing here moves to the CPU when no GPU is found.
-A train step is the model forward and the loss stack (:func:`make_train_step`'s
+One device, explicit: nothing here moves to the CPU when no GPU is found;
+or, with ``mesh=`` (``parallel/mesh.py``), data-parallel over the mesh's
+data rows from this one process, as JAX's single-controller step: the
+parameters and the optimizer live on the first device, each row's slice of
+the batch runs through ``torch.func.functional_call`` with the parameters
+copied to its device, the outputs come back to the first device and the
+loss is computed once, on the whole batch (so a whole-batch loss such as
+``dice`` equals the one-device step's), autograd carries the gradients
+back and the update is made once. The space axis, whose replicas change
+nothing in JAX, is computed once a row. A train step is the model forward and the loss stack (:func:`make_train_step`'s
 ``loss_fn``), ``loss.backward()`` through the kernels' autograd wrappers,
 and the optimizer update (``apply_update``); the three are public so a
 caller can time them apart. The loss stack, the strict-``>`` epoch gating
@@ -35,6 +43,7 @@ from skoots_tpu_torch.checkpoint import (
     torch_params_from_flax,
 )
 from skoots_tpu_torch.models import init_model, load_flax_params
+from skoots_tpu_torch.models.unext import ConvNeXtBlock3D, DropPathMasks
 from skoots_tpu_torch.ops.embed2prob import baked_embed_to_prob
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
 from skoots_tpu_torch.train.losses import cfg_loss
@@ -211,8 +220,9 @@ def _losses(cfg: dict):
                  for n in ("LOSS_EMBED", "LOSS_PROBABILITY", "LOSS_SKELETON"))
 
 
-def _loss_terms(model, batch, sigma_value, vector_scale, losses, drop_gen=None):
-    out = model(batch["image"], drop_gen)
+def _loss_terms(model, batch, sigma_value, vector_scale, losses, drop_gen=None,
+                forward=None):
+    out = (forward or model)(batch["image"], drop_gen)
     vec, skel, prob = out[..., 0:3], out[..., 3:4], out[..., 4:5]
     embedding = vector_to_embedding(vector_scale, vec)
     embed_prob = baked_embed_to_prob(embedding, batch["baked"], sigma_value)
@@ -222,8 +232,42 @@ def _loss_terms(model, batch, sigma_value, vector_scale, losses, drop_gen=None):
     return loss_embed(embed_prob, gt_fg), loss_prob(prob, gt_fg), loss_skele(skel, gt_skel)
 
 
+def data_parallel_forward(model, mesh):
+    """``forward(image, drop_gen) -> out``: the model on each of the mesh's
+    data rows' slice of the batch (``batch_sharding``), with the
+    parameters copied to the row's device (differentiably), the outputs
+    concatenated on the first device. DropPath's masks are drawn for the
+    whole batch, in block order, then sliced per row
+    (:class:`~skoots_tpu_torch.models.unext.DropPathMasks`), so the rows
+    drop what one forward of the whole batch would."""
+    from skoots_tpu_torch.parallel import batch_sharding
+
+    first = mesh.devices[0][0]
+    blocks = sum(isinstance(m, ConvNeXtBlock3D) for m in model.modules())
+    rate = float(getattr(model.backbone, "drop_path_rate", 0.0))
+
+    def forward(image, drop_gen=None):
+        pieces = batch_sharding(mesh, image)
+        if drop_gen is not None and model.training and rate > 0:
+            drop_gen = DropPathMasks.draw(drop_gen, blocks, image.shape[0], rate)
+        outs, start = [], 0
+        for piece, row in zip(pieces, mesh.devices):
+            dev = row[0]
+            state = {n: t.to(dev) for n, t in model.named_parameters()}
+            state.update({n: t.to(dev) for n, t in model.named_buffers()})
+            gen = drop_gen.shard(start, piece.shape[0]) \
+                if isinstance(drop_gen, DropPathMasks) else drop_gen
+            out = torch.func.functional_call(model, state, (piece, gen))
+            outs.append(out.to(first))
+            start += piece.shape[0]
+        return torch.cat(outs, 0)
+
+    return forward
+
+
 def make_train_step(model, optimizer: torch.optim.Optimizer,
-                    schedule: Callable[[int], float], sigma: Sigma, cfg: dict):
+                    schedule: Callable[[int], float], sigma: Sigma, cfg: dict,
+                    mesh=None):
     """``step(batch, epoch) -> metrics``: one forward, backward and update
     of ``model`` (in train mode). Batch (channels-last, on the model's
     device): image ``[B, X, Y, Z, 1]`` f32 normalised, masks and
@@ -231,7 +275,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     Metrics: loss, embed, prob, skele (0-d tensors) and lr. With
     ``MODEL.DROP_PATH_RATE`` > 0 the n-th call (from 0) draws its DropPath
     masks from ``drop_path_generator(TRAIN.SEED, n)``; ``loss_fn(batch,
-    epoch, drop_gen=None)`` takes the generator explicitly."""
+    epoch, drop_gen=None)`` takes the generator explicitly. ``mesh``: the
+    data-parallel forward (:func:`data_parallel_forward`; ``model`` on the
+    mesh's first device, the batch anywhere)."""
     t = cfg["TRAIN"]
     vector_scale = tuple(float(v) for v in cfg["SKOOTS"]["VECTOR_SCALING"])
     losses = _losses(cfg)
@@ -242,9 +288,11 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
 
     seed, drop = int(t["SEED"]), float(cfg["MODEL"]["DROP_PATH_RATE"]) > 0
     calls = [0]
+    forward = data_parallel_forward(model, mesh) if mesh is not None else None
 
     def loss_fn(batch, epoch: int, drop_gen: Optional[torch.Generator] = None):
-        terms = _loss_terms(model, batch, sigma(epoch), vector_scale, losses, drop_gen)
+        terms = _loss_terms(model, batch, sigma(epoch), vector_scale, losses, drop_gen,
+                            forward)
         # epoch gating, strict >: a gated-off term still enters times 0
         total = sum(w * float(epoch > e0) * term
                     for w, e0, term in zip(weights, starts, terms))
@@ -341,6 +389,7 @@ def train(
     dataset_std: float = 1.0,
     writer=None,
     object_radius: Optional[float] = None,
+    mesh=None,
 ) -> TrainState:
     """Train a freshly initialised model (weights from ``TRAIN.SEED``, or a
     pretrained checkpoint) on ``device`` for ``TRAIN.NUM_EPOCHS`` epochs.
@@ -353,9 +402,11 @@ def train(
     (:func:`write_panels`), as the JAX loop does. ``AUTOGRAD_PROFILE``
     records a ``torch.profiler`` trace to ``SAVE_PATH/torch_trace``;
     ``AUTOGRAD_DETECT_ANOMALY`` turns on
-    ``torch.autograd.set_detect_anomaly``."""
+    ``torch.autograd.set_detect_anomaly``. ``mesh``: train data-parallel
+    over its data rows (:func:`make_train_step`); the model, the optimizer,
+    validation and the panels then live on its first device."""
     t = cfg["TRAIN"]
-    device = torch.device(device)
+    device = mesh.devices[0][0] if mesh is not None else torch.device(device)
     model = init_model(cfg, t["SEED"], device=device).train()
     ckpt = None
     if t["PRETRAINED_MODEL_PATH"]:
@@ -369,7 +420,7 @@ def train(
         count0 = load_flax_opt_state(optimizer, model, cfg, ckpt["opt_state"])
         log.info("restored the optimizer state (%d updates)", count0)
     sigma = init_sigma(cfg)
-    train_step = make_train_step(model, optimizer, schedule, sigma, cfg)
+    train_step = make_train_step(model, optimizer, schedule, sigma, cfg, mesh)
     eval_step = make_eval_step(model, sigma, cfg) if val_iter else None
     vector_scale = tuple(float(v) for v in cfg["SKOOTS"]["VECTOR_SCALING"])
 

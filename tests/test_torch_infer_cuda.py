@@ -324,3 +324,51 @@ def test_cuda_dwconv_at_every_odd_k(cuda_device):
     torch.cuda.synchronize()
     assert dx.dtype == torch.bfloat16 and _bf16_ulps(dx, want) <= 1.0
     assert dwconv3d.launches == 2 * len(cases) + 2
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_a_card_that_is_not_current(cuda_device):
+    """Every kernel with its operands on ``cuda:1`` while ``cuda:0`` is the
+    current card (the wrappers make the operands' card current for the
+    launch, so the library's per-device set-up is that card's): each equal
+    to its plain version as on one card, and ``cuda:0`` still current
+    after. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel, bake_skeleton_ref
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d_wgrad, dwconv3d_wgrad_ref
+
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 12, 20, 16, 32), device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn((7, 7, 7, 32), device=dev, generator=gen) / 18.5).to(torch.bfloat16).float()
+    b = torch.zeros(32, device=dev)
+    assert _bf16_ulps(dwconv3d(x, w, b), dwconv3d_ref(x, w, b)) <= 1.0
+    g = torch.randn(x.shape, device=dev, generator=gen).to(torch.bfloat16)
+    wg, wref = dwconv3d_wgrad(x, g, 7), dwconv3d_wgrad_ref(x, g, 7)
+    assert float((wg - wref).abs().max()) <= 1e-2 * float(wref.abs().max())
+    c = 32
+    ln = (torch.ones(c, device=dev), torch.zeros(c, device=dev))
+    w1 = torch.randn((c, 4 * c), device=dev, generator=gen) / c ** 0.5
+    w2 = torch.randn((4 * c, c), device=dev, generator=gen) / (4 * c) ** 0.5
+    args = (x, x, *ln, w1, torch.zeros(4 * c, device=dev), w2, torch.zeros(c, device=dev),
+            torch.ones(c, device=dev))
+    assert _bf16_ulps(mlp_block_tail(*args), mlp_block_tail_ref(*args)) <= 2.0
+    wh = torch.randn((c, 5), device=dev, generator=gen) / c ** 0.5
+    head = (x, *ln, wh, torch.zeros(5, device=dev))
+    assert torch.equal(ln_head(*head), ln_head_ref(*head))
+    assert torch.equal(upsample2x(x), upsample2x_ref(x))
+    lab = torch.zeros((20, 30, 40), dtype=torch.int32, device=dev)
+    fg = torch.zeros_like(lab, dtype=torch.uint8)
+    fg[2:18, 5, 7:30] = 1
+    lab[fg > 0] = torch.arange(1, int(fg.sum()) + 1, dtype=torch.int32, device=dev)
+    assert torch.equal(prop_mod.propagate(lab, fg, passes=5), plain(lab, fg, 5, 26))
+    masks = torch.zeros((16, 24, 8), dtype=torch.int32, device=dev)
+    masks[2:12, 4:20, 2:6] = 1
+    pts = torch.tensor([[5.0, 6.0, 3.0], [9.0, 15.0, 4.0]], device=dev)
+    ids = torch.ones(2, dtype=torch.int32, device=dev)
+    for got, ref in zip(bake_skeleton_kernel(masks, pts, ids), bake_skeleton_ref(masks, pts, ids)):
+        assert torch.equal(got, ref)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0

@@ -46,7 +46,9 @@ EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample"
             "skoots_tpu_torch.models.unext", "skoots_tpu_torch.models.registry",
             "skoots_tpu_torch.infer.perslice", "skoots_tpu_torch.utils.flood_and_stitch",
             "skoots_tpu_torch.utils.remove_margin", "skoots_tpu_torch.utils.renumber",
-            "skoots_tpu_torch.utils.synthetic", "skoots_tpu_torch.tools.accuracy_campaign"}
+            "skoots_tpu_torch.utils.synthetic", "skoots_tpu_torch.tools.accuracy_campaign",
+            "skoots_tpu_torch.parallel", "skoots_tpu_torch.parallel.mesh",
+            "skoots_tpu_torch.parallel.distributed", "skoots_tpu_torch.infer.sharded"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():

@@ -368,10 +368,11 @@ def test_cli_matches_jax_cli_on_bench_checkpoint(tmp_path):
 @pytest.mark.parametrize("flag", [["--spatial-shards", "2"],
                                   ["--experimental", "--spatial-shards", "2"]])
 def test_cli_unported_options_raise(tmp_path, flag):
-    """Engines and flags the port does not have yet raise instead of being
-    ignored, also through ``--experimental``'s tuned knobs."""
+    """Options the call cannot honour raise instead of being ignored, also
+    through ``--experimental``'s tuned knobs: two spatial shards on the
+    one device ``--device cpu`` names raise JAX's message."""
     vol = tmp_path / "v.tif"
     jax_imsave(str(vol), np.zeros((8, 8, 4), np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs that many devices, have 1"):
         torch_cli(["--image", str(vol), "--pretrained-checkpoint",
                    "runs/bench_ckpt.skoots", "--log", "0", "--device", "cpu"] + flag)

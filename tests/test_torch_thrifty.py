@@ -32,7 +32,7 @@ from skoots_tpu.utils.io import imsave as jax_imsave
 from skoots_tpu.utils.synthetic import make_tubes
 from skoots_tpu_torch.checkpoint import load_checkpoint
 from skoots_tpu_torch.infer import device_pipeline as tdp
-from skoots_tpu_torch.infer import engine
+from skoots_tpu_torch.infer import engine, sharded
 from skoots_tpu_torch.models import model_from_checkpoint
 from skoots_tpu_torch.ops import flood_fill as tff
 
@@ -117,7 +117,7 @@ def test_auto_takes_thrifty_where_only_it_fits(hot, tmp_path, monkeypatch, per_v
     assert img.dtype == np.uint8
     np.save(tmp_path / "v.npy", img)
     monkeypatch.setattr(engine, "HOST_ENGINE_MAX_VOXELS", 0)
-    monkeypatch.setattr(engine, "_device_bytes_limit",
+    monkeypatch.setattr(sharded, "device_bytes_limit",
                         lambda device: per_voxel * img.size)
     monkeypatch.setattr(engine, "_forward_tile_bytes", lambda *a: tile_bytes)
     mask = engine.run_inference(str(tmp_path / "v.npy"), ckpt, device="cpu",

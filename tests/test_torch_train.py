@@ -416,5 +416,6 @@ def test_train_cli_refuses_a_mesh_and_needs_a_config(tmp_path):
     assert main([]) == 2
     p = tmp_path / "cfg.yaml"
     p.write_text(yaml.safe_dump({"SYSTEM": {"MESH_SPACE": 2}}))
-    with pytest.raises(NotImplementedError):
+    # a 1 x 2 mesh over the one device the call names: JAX's assertion
+    with pytest.raises(AssertionError, match="mesh 1x2 != 1 devices"):
         main(["--config-file", str(p), "--device", "cpu"])
