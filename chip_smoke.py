@@ -151,7 +151,20 @@ them. In order:
     card); after the resume,
     ``run_dp_train`` (a data-2 step against the one-device step, 8 bf16
     steps with exact launches, NCCL at world size 1);
-19. prints one JSON line of per-kernel results (each with its least time on
+19. the single-program pipeline (``make_device_pipeline``) right after the
+   host engine, at JAX's defaults (crop 256x256x16, overlap 16x16x2, CC
+   32 x 128 propagates and 1 jump) on the 256^3 host phantom with the
+   bench checkpoint: launches exact (each forward kernel per tile,
+   propagate per CC round), the instances inside the phantom's bar, the
+   warm e2e (median of 3), phase split and reserved peak; the host
+   engine's block card vs CPU; every kernel against its plain version at
+   the operand shapes of the run (levels of Z = 16, 8, 4);
+   ``segment_volume_chunked`` against the chunked pipeline it wraps; a
+   ``.trch`` round trip (the checkpoint exported to the reference twin's
+   ``state_dict`` layout, ``torch.save``d with a dict cfg, converted back
+   by ``utils/torch_compat.py::convert_trch``: parameters bit for bit, the
+   same mask);
+20. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -817,8 +830,8 @@ def run_host_engine(results: list):
     on a seeded 256^3 tube phantom (uint8 ``.npy``) with the bench
     checkpoint, then its ``--use-cached`` and out-of-core reruns, then a
     128x128x32 block on the card and on the CPU. Returns the phantom, the
-    default run's instance count, the tubes placed and the default run's
-    mask."""
+    default run's instance count, the tubes placed, the default run's mask
+    and the origin of the card-vs-CPU block."""
     import shutil
 
     import torch
@@ -918,7 +931,188 @@ def run_host_engine(results: list):
           "the host engine's instances on the card differ from the CPU's")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return vol, n_default, n_expected, default_mask
+    return vol, n_default, n_expected, default_mask, origin
+
+
+# the single-program pipeline's card-vs-CPU block: the host engine's
+# 128x128x32 block, cut into two forward tiles of JAX's default Z crop
+DEVICE_PIPELINE_CPU_CROP = (128, 128, 16)
+DEVICE_PIPELINE_REPEATS = 3
+
+
+def _twin_state_layout(cfg) -> dict:
+    """Key -> shape of the reference UNeXT twin's ``state_dict`` for ``cfg``
+    (the layout of ``tests/test_compat.py::_build_torch_twin``, in its
+    registration order: the stem, each encoder stage's blocks and its
+    downsample, the bottleneck, each decoder stage's fuse and blocks, the
+    final norm, the head and the three output heads)."""
+    m = cfg["MODEL"]
+    dims, depths, k = list(m["DIMS"]), list(m["DEPTHS"]), m["KERNEL_SIZE"]
+    kd = len(dims) // 2
+    out: dict = {"stem.weight": (dims[0], m["IN_CHANNELS"], k, k, k), "stem.bias": (dims[0],)}
+
+    def block(prefix, d):
+        out.update({prefix + "gamma": (d,), prefix + "dwconv.weight": (d, 1, k, k, k),
+                    prefix + "dwconv.bias": (d,), prefix + "norm.weight": (d,),
+                    prefix + "norm.bias": (d,), prefix + "pwconv1.weight": (4 * d, d),
+                    prefix + "pwconv1.bias": (4 * d,), prefix + "pwconv2.weight": (d, 4 * d),
+                    prefix + "pwconv2.bias": (d,)})
+
+    for s in range(kd):
+        for i in range(depths[s]):
+            block(f"enc.{s}.{i}.", dims[s])
+        p = f"enc.{s}.{depths[s]}."
+        out.update({p + "norm.weight": (dims[s],), p + "norm.bias": (dims[s],),
+                    p + "conv.weight": (dims[s + 1], dims[s], 2, 2, 2),
+                    p + "conv.bias": (dims[s + 1],)})
+    for i in range(depths[kd]):
+        block(f"bottleneck.{i}.", dims[kd])
+    for s in range(kd):
+        d = kd + 1 + s
+        out.update({f"dec.{s}.fuse.weight": (dims[d], dims[d - 1] + dims[kd - 1 - s], 1, 1, 1),
+                    f"dec.{s}.fuse.bias": (dims[d],)})
+        for i in range(depths[d]):
+            block(f"dec.{s}.blocks.{i}.", dims[d])
+    c = m["OUT_CHANNELS"]
+    out.update({"final_norm.weight": (dims[-1],), "final_norm.bias": (dims[-1],),
+                "head_conv.weight": (c, dims[-1], 1, 1, 1), "head_conv.bias": (c,)})
+    for head, n in (("vector", 3), ("skeleton", 1), ("semantic", 1)):
+        out.update({f"{head}.weight": (n, c, 1, 1, 1), f"{head}.bias": (n,)})
+    return out
+
+
+def run_device_pipeline(results: list, vol, n_expected: int, block_origin) -> None:
+    """The single-program pipeline (``infer/device_pipeline.py::
+    make_device_pipeline``) at JAX's defaults (crop 256x256x16, overlap
+    16x16x2, CC 32 rounds x 128 propagates and 1 jump, N = 10, bf16
+    vectors) with the bench checkpoint's vector scale, on the 256^3 host
+    phantom: one run through :func:`_drive` with every kernel's operands
+    recorded (each forward kernel ``FORWARD_KERNELS_PER_TILE`` x tiles,
+    propagate ``len(launch_plan(128))`` a CC round), the instances inside
+    the phantom's bar, the warm e2e (median of ``DEVICE_PIPELINE_REPEATS``),
+    phase split and reserved peak; the same pipeline on the host engine's
+    block, card against CPU; every kernel against its plain version at the
+    operand shapes the run gave it (levels of Z = 16, 8 and 4); then
+    ``segment_volume_chunked`` against the ``make_chunked_pipeline`` it
+    wraps; and a ``.trch`` round trip: the checkpoint's weights exported
+    to the reference twin's ``state_dict`` layout (``export_torch_state``),
+    saved with a dict cfg, converted back (``convert_trch``): parameters
+    bit for bit and the pipeline's mask equal."""
+    import torch
+
+    from skoots_tpu_torch import checkpoint
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.config import to_plain
+    from skoots_tpu_torch.infer import (make_chunked_pipeline, make_device_pipeline,
+                                        segment_volume_chunked)
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.models import model_from_checkpoint
+    from skoots_tpu_torch.ops import flood_fill
+    from skoots_tpu_torch.utils.torch_compat import convert_trch, export_torch_state
+
+    dev = torch.device("cuda")
+    ckpt_path = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    ckpt = load_checkpoint(ckpt_path)
+    model = model_from_checkpoint(ckpt, device=dev)
+    mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
+    scale = tuple(ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"])
+    shape = tuple(vol.shape)
+    volume = torch.from_numpy(vol).to(dev)
+    run = make_device_pipeline(model, shape, vector_scale=scale, device=dev)
+
+    seen: dict = {}
+    with _kernel_operands(seen, cc=flood_fill):
+        inst, counts, _ = _drive("device pipeline", lambda: run(volume, mean, std), results)
+    _need(tuple(inst.shape) == shape and inst.dtype == torch.int32,
+          f"device pipeline output {tuple(inst.shape)} {inst.dtype}")
+    want = {k: v * run.tile_plan["forward"] for k, v in FORWARD_KERNELS_PER_TILE.items()}
+    want["propagate"] = run.last_cc_rounds * len(prop_mod.launch_plan(128))
+    _need(counts == want and counts["propagate"] > 0,
+          f"device pipeline: launches {counts}, expected {want}")
+    n_inst = int((torch.unique(inst) > 0).sum())
+    _need(0.8 * n_expected <= n_inst <= n_expected + 4,
+          f"device pipeline: {n_inst} instances outside [0.8*{n_expected}, {n_expected}+4]")
+
+    walls, phases = [], []
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(DEVICE_PIPELINE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        again = run(volume, mean, std)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        phases.append(dict(run.last_phase_s))
+        _need(torch.equal(again, inst), "device pipeline: a warm rerun's mask differs")
+    reserved = torch.cuda.max_memory_reserved() - base
+    print(f"device pipeline: {n_inst} instances of {n_expected} placed; tiles "
+          f"{run.tile_plan}; CC {run.last_cc_rounds} rounds (converged "
+          f"{run.last_cc_converged}); warm e2e median {float(np.median(walls)):.3f} s of "
+          f"{[round(w, 3) for w in walls]}; phases {json.dumps(phases)}; reserved peak "
+          f"{reserved} B ({reserved / np.prod(shape):.1f} B a voxel)", flush=True)
+
+    # the card against the plain versions on the CPU, on the host engine's block
+    ox, oy, oz = block_origin
+    block = volume[ox:ox + 128, oy:oy + 128, oz:oz + 32].contiguous()
+    masks = []
+    for d, m in ((dev, model), (torch.device("cpu"), model_from_checkpoint(ckpt, device="cpu"))):
+        masks.append(make_device_pipeline(
+            m, tuple(block.shape), crop=DEVICE_PIPELINE_CPU_CROP, vector_scale=scale,
+            device=d)(block.to(d), mean, std).cpu().numpy())
+    n_cpu, n_card, min_iou = _iou_match(masks[1], masks[0])
+    print(f"device pipeline card vs cpu on the block at {block_origin}: {n_card} vs {n_cpu} "
+          f"instances, min IoU {min_iou:.4f}", flush=True)
+    _need(n_cpu >= 1 and n_card == n_cpu and min_iou >= 0.95,
+          "the device pipeline's instances on the card differ from the CPU's")
+
+    _check_sharded_kernels(results, seen, "the device pipeline's CC")
+
+    # segment_volume_chunked is the chunked pipeline it builds
+    chunked = make_chunked_pipeline(model, shape, vector_scale=scale, device=dev)(
+        volume, mean, std)
+    wrapped = segment_volume_chunked(model, volume, mean, std, vector_scale=scale,
+                                     device=dev)
+    n_chunked = int((torch.unique(chunked) > 0).sum())
+    print(f"segment_volume_chunked: {n_chunked} instances, mask "
+          f"{'equal to' if torch.equal(wrapped, chunked) else 'DIFFERENT from'} "
+          "make_chunked_pipeline's", flush=True)
+    _need(torch.equal(wrapped, chunked), "segment_volume_chunked differs from its pipeline")
+    del chunked, wrapped
+
+    # the .trch round trip: the twin's layout, a dict cfg, convert_trch
+    work = os.path.join(ROOT, "build", "trch_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = to_plain(ckpt["cfg"])
+    template = {k: np.zeros(v, np.float32) for k, v in _twin_state_layout(cfg).items()}
+    state, exported, skipped, unused = export_torch_state(ckpt["params"], template,
+                                                          ckpt["cfg"])
+    _need(exported == len(template) and not skipped and not unused,
+          f".trch export: {exported} of {len(template)}, skipped {skipped}, unused {unused}")
+    src = os.path.join(work, "bench.trch")
+    torch.save({"cfg": cfg, "model_state_dict": {k: torch.from_numpy(v) for k, v in
+                                                 state.items()},
+                "dataset_mean": mean, "dataset_std": std}, src)
+    t0 = time.time()
+    back = load_checkpoint(convert_trch(src))
+    dt = time.time() - t0
+    a, b = checkpoint._flat(ckpt["params"]), checkpoint._flat(back["params"])
+    same = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    trch_mask = make_device_pipeline(model_from_checkpoint(back, device=dev), shape,
+                                     vector_scale=scale, device=dev)(volume, mean, std)
+    print(f".trch round trip: {len(template)} tensors exported to the twin's layout, "
+          f"converted in {dt:.2f} s ({back['extra']['mapped']} mapped, unmapped "
+          f"{back['extra']['unmapped_torch_keys']}, unfilled "
+          f"{back['extra']['unfilled_params']}); parameters "
+          f"{'bit for bit equal' if same else 'DIFFERENT'}; device pipeline mask "
+          f"{'equal' if torch.equal(trch_mask, inst) else 'DIFFERENT'}", flush=True)
+    _need(same and back["extra"]["mapped"] == len(template),
+          ".trch round trip: the converted parameters differ from the checkpoint's")
+    _need(torch.equal(trch_mask, inst), ".trch round trip: the device pipeline's mask differs")
+    shutil.rmtree(work, ignore_errors=True)
+    del model, volume, inst, again, trch_mask
+    torch.cuda.empty_cache()
 
 
 def run_slice(results: list):
@@ -2682,9 +2876,10 @@ SHARDED_REPEATS = 3
 
 
 @contextlib.contextmanager
-def _kernel_operands(seen: dict):
+def _kernel_operands(seen: dict, cc=None):
     """While open, record the operands of every launch of the forward
-    kernels and of the sharded CC's propagate: ``seen[name]`` a set of the
+    kernels and of propagate as the CC module ``cc`` calls it (by default
+    the sharded CC's, ``infer/sharded.py``): ``seen[name]`` a set of the
     ``_check_*`` arguments (shapes, channels, k, dtype), and
     ``seen["propagate"]`` a copy of the first labels and mask of each
     (shape, passes). Each wrapper still launches once a call."""
@@ -2693,12 +2888,14 @@ def _kernel_operands(seen: dict):
     from skoots_tpu_torch.infer import sharded
     from skoots_tpu_torch.kernels import dwconv, lnhead, mlp, upsample
 
+    cc = cc or sharded
+
     def dtn(t):
         return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
     saved = {(dwconv, "_dwconv3d_fwd"): None, (mlp, "_mlp_fwd"): None,
              (lnhead, "_ln_head_fwd"): None, (upsample, "_upsample2x_fwd"): None,
-             (sharded, "propagate"): None}
+             (cc, "propagate"): None}
     for key in saved:
         saved[key] = getattr(*key)
     for name in ("dwconv3d", "mlp_block_tail", "ln_head", "upsample2x"):
@@ -2726,7 +2923,7 @@ def _kernel_operands(seen: dict):
         key = (tuple(labels.shape), passes)
         if key not in seen["propagate"]:
             seen["propagate"][key] = (labels.clone(), fg.clone())
-        return saved[sharded, "propagate"](labels, fg, passes=passes, **kwargs)
+        return saved[cc, "propagate"](labels, fg, passes=passes, **kwargs)
 
     for (mod, attr), fn in zip(saved, (dw, tail, head, up, prop)):
         setattr(mod, attr, fn)
@@ -2737,12 +2934,13 @@ def _kernel_operands(seen: dict):
             setattr(mod, attr, fn)
 
 
-def _check_sharded_kernels(results: list, seen: dict) -> None:
-    """Every kernel at every operand shape the sharded runs gave it
+def _check_sharded_kernels(results: list, seen: dict, cc_input: str = "a sharded CC chunk"
+                           ) -> None:
+    """Every kernel at every operand shape a driven run gave it
     (:func:`_kernel_operands`), against its plain version at the bounds
     of :func:`check_kernels`: the forward kernels on seeded inputs drawn
-    on the card, the CC's propagate on the labels and mask of the chunk it
-    labelled (0 voxels differing; least time as row 4b's)."""
+    on the card, the CC's propagate on the labels and mask it labelled
+    (``cc_input`` names them; 0 voxels differing; least time as row 4b's)."""
     import torch
 
     from skoots_tpu_torch.kernels.propagate import propagate, propagate_ref
@@ -2772,7 +2970,7 @@ def _check_sharded_kernels(results: list, seen: dict) -> None:
         differing = float((got != plain()).sum())
         _record(results, "propagate", "skoots_tpu_torch/csrc/propagate.cu",
                 "skoots_tpu/kernels/propagate.py:93", differing, differing, 0.0,
-                f"voxels differing on a sharded CC chunk {shape}, {passes} passes, "
+                f"voxels differing on {cc_input} {shape}, {passes} passes, "
                 f"{int(fg.sum())} fg voxels",
                 _time_ms(lambda: propagate(lab, fg, passes=passes), SHARDED_REPEATS),
                 _time_ms(plain, SHARDED_REPEATS), (sparse_bound_ms(fg, passes), "bytes"))
@@ -3070,7 +3268,8 @@ def main() -> int:
     results = check_kernels()
     check_microbenchmarks(results)
     check_train_kernels(results)
-    host_phantom, n_default, n_expected, host_mask = run_host_engine(results)
+    host_phantom, n_default, n_expected, host_mask, block_origin = run_host_engine(results)
+    run_device_pipeline(results, host_phantom, n_expected, block_origin)
     run_tif(results, host_phantom, host_mask)
     run_experimental(results, host_phantom, n_default, n_expected)
     ckpt, model, volume, chunked, chunked_peak, chunked_run = run_slice(results)

@@ -6,8 +6,8 @@ Port of ``skoots_tpu/train/checkpoint.py:37-84``. A checkpoint is the magic
 ``{'cfg', 'params', 'opt_state', 'dataset_mean', 'dataset_std', 'extra'}``.
 Arrays are flax's msgpack ext type 1: a nested msgpack ``[shape, dtype
 name, raw bytes]`` (ext type 3 is the same for a numpy scalar). The small
-decoder and encoder below cover exactly what those files use; ``cfg`` stays
-a plain dict. :func:`save_checkpoint` writes a file that the JAX package's
+decoder and encoder below cover exactly what those files use; ``cfg`` is
+read back as a :class:`~skoots_tpu_torch.config.CfgNode`. :func:`save_checkpoint` writes a file that the JAX package's
 ``load_checkpoint`` + ``restore_params`` read; ``opt_state`` is the flax
 state dict of JAX's optax state (``train/engine.py::flax_opt_state``) or
 ``None``.
@@ -127,14 +127,21 @@ def msgpack_decode(buf: bytes) -> Any:
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Load a ``.skoots`` checkpoint: ``{'cfg': dict, 'params': nested dict of
-    numpy arrays, 'opt_state', 'dataset_mean', 'dataset_std', 'extra'}``."""
+    """Load a ``.skoots`` checkpoint: ``{'cfg': CfgNode (the defaults merged
+    leniently with the file's cfg, as JAX's), 'params': nested dict of numpy
+    arrays, 'opt_state', 'dataset_mean', 'dataset_std', 'extra'}``."""
+    from skoots_tpu_torch.config import cfg_from_dict
+
     with open(path, "rb") as f:
         head = f.read(len(MAGIC))
         if head != MAGIC:
             raise RuntimeError(
-                f"{path} is not a skoots-tpu checkpoint (bad magic {head!r})")
-        return msgpack_decode(f.read())
+                f"{path} is not a skoots-tpu checkpoint (bad magic {head!r}); "
+                "PyTorch .trch files need skoots_tpu_torch.utils.torch_compat."
+                "convert_trch")
+        state = msgpack_decode(f.read())
+    state["cfg"] = cfg_from_dict(state["cfg"])
+    return state
 
 
 def _flat(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:

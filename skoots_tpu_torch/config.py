@@ -1,8 +1,9 @@
-"""Configuration as plain nested dicts (port of ``skoots_tpu/config.py``).
+"""Configuration (port of ``skoots_tpu/config.py``).
 
 The same sections and keys as the JAX package (and the reference SKOOTS
-yacs schema), so one YAML file drives either package. A cfg is a dict of
-section dicts: ``cfg["TRAIN"]["SEED"]``.
+yacs schema), so one YAML file drives either package. A cfg is a
+:class:`CfgNode`, a dict of section dicts with attribute access, as JAX's:
+``cfg["TRAIN"]["SEED"]`` and ``cfg.TRAIN.SEED`` read the same value.
 
 * :func:`get_cfg_defaults` -- a fresh copy of the defaults;
 * :func:`merge_from_dict` / :func:`load_cfg_from_file` -- the strict merge:
@@ -21,6 +22,70 @@ import copy
 import re
 import warnings
 from typing import Any, Dict
+
+
+class CfgNode(dict):
+    """Attribute-accessible dict with freeze / merge semantics (yacs-like),
+    JAX's ``skoots_tpu/config.py::CfgNode``: nested dicts become nodes;
+    freezing blocks attribute writes and merges (item writes, as in JAX,
+    still go through)."""
+
+    IMMUTABLE = "__immutable__"
+
+    def __init__(self, init_dict: Dict[str, Any] | None = None):
+        super().__init__()
+        self.__dict__[CfgNode.IMMUTABLE] = False
+        for k, v in (init_dict or {}).items():
+            self[k] = CfgNode(v) if isinstance(v, dict) else v
+
+    def __getattr__(self, name: str) -> Any:
+        if name in self:
+            return self[name]
+        raise AttributeError(f"CfgNode has no attribute {name!r}")
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if self.__dict__.get(CfgNode.IMMUTABLE, False):
+            raise AttributeError(f"CfgNode is frozen; cannot set {name!r}")
+        self[name] = value
+
+    def _set_frozen(self, frozen: bool) -> "CfgNode":
+        self.__dict__[CfgNode.IMMUTABLE] = frozen
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v._set_frozen(frozen)
+        return self
+
+    def freeze(self) -> "CfgNode":
+        return self._set_frozen(True)
+
+    def defrost(self) -> "CfgNode":
+        return self._set_frozen(False)
+
+    def is_frozen(self) -> bool:
+        return self.__dict__.get(CfgNode.IMMUTABLE, False)
+
+    def clone(self) -> "CfgNode":
+        return CfgNode(self.to_dict())
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: v.to_dict() if isinstance(v, CfgNode) else copy.deepcopy(v)
+                for k, v in self.items()}
+
+    def merge_from_dict(self, other: Dict[str, Any]) -> "CfgNode":
+        if self.is_frozen():
+            raise AttributeError("cannot merge into a frozen CfgNode")
+        return merge_from_dict(self, other)
+
+    def merge_from_file(self, path: str) -> "CfgNode":
+        with open(path) as f:
+            return self.merge_from_dict(load_yaml(f.read()) or {})
+
+    def dump(self) -> str:
+        return dump_yaml(self.to_dict(), sort_keys=False)
+
+    def __repr__(self) -> str:
+        return f"CfgNode({dict.__repr__(self)})"
+
 
 _DEFAULTS: Dict[str, Dict[str, Any]] = {
     "SYSTEM": {
@@ -149,9 +214,9 @@ _DEFAULTS: Dict[str, Dict[str, Any]] = {
 }
 
 
-def get_cfg_defaults() -> Dict[str, Dict[str, Any]]:
+def get_cfg_defaults() -> CfgNode:
     """A fresh deep copy of the default cfg."""
-    return copy.deepcopy(_DEFAULTS)
+    return CfgNode(copy.deepcopy(_DEFAULTS))
 
 
 def _coerce(value: Any, template: Any) -> Any:
@@ -183,18 +248,22 @@ def merge_from_dict(cfg: dict, other: dict, _path: str = "") -> dict:
 def _merge_lenient(node: dict, d: dict) -> None:
     for k, v in d.items():
         if k not in node:
-            node[k] = copy.deepcopy(v)
+            node[k] = CfgNode(copy.deepcopy(v)) if isinstance(v, dict) else copy.deepcopy(v)
         elif isinstance(node[k], dict) and isinstance(v, dict):
             _merge_lenient(node[k], v)
         else:
             node[k] = _coerce(v, node[k])
 
 
-def cfg_from_dict(d: dict) -> dict:
-    """Defaults merged with ``d`` (a checkpoint's embedded cfg), keeping
-    unknown keys."""
+def cfg_from_dict(d: dict, strict: bool = False) -> CfgNode:
+    """Defaults merged with ``d`` (a checkpoint's embedded cfg): unknown keys
+    kept, or with ``strict`` raising as :func:`merge_from_dict` does, so
+    checkpoints written by other versions still load."""
     cfg = get_cfg_defaults()
-    _merge_lenient(cfg, d)
+    if strict:
+        merge_from_dict(cfg, d)
+    else:
+        _merge_lenient(cfg, d)
     return cfg
 
 
@@ -662,26 +731,26 @@ def _dump_scalar(value: Any) -> str:
     return '"' + "".join(out) + '"'
 
 
-def _dump_block(node: Any, indent: int) -> list:
+def _dump_block(node: Any, indent: int, sort_keys: bool = True) -> list:
     """The lines of a non-empty mapping or sequence at ``indent``: keys
-    sorted, a sequence under a key not indented, an item that is itself a
+    sorted (or in insertion order), a sequence under a key not indented, an item that is itself a
     collection opening on its ``- `` line, as PyYAML's emitter writes them."""
     pad = " " * indent
     lines = []
     if isinstance(node, dict):
-        for key in sorted(node):
+        for key in (sorted(node) if sort_keys else node):
             value = node[key]
             head = pad + _dump_scalar(key) + ":"
             if isinstance(value, dict) and value:
-                lines += [head, *_dump_block(value, indent + 2)]
+                lines += [head, *_dump_block(value, indent + 2, sort_keys)]
             elif isinstance(value, (list, tuple)) and value:
-                lines += [head, *_dump_block(value, indent)]
+                lines += [head, *_dump_block(value, indent, sort_keys)]
             else:
                 lines.append(head + " " + _dump_inline(value))
         return lines
     for item in node:
         if isinstance(item, (dict, list, tuple)) and item:
-            sub = _dump_block(item, indent + 2)
+            sub = _dump_block(item, indent + 2, sort_keys)
             sub[0] = pad + "- " + sub[0][indent + 2:]
             lines += sub
         else:
@@ -697,29 +766,27 @@ def _dump_inline(value: Any) -> str:
     return _dump_scalar(value)
 
 
-def dump_yaml(obj: Any) -> str:
-    """``yaml.safe_dump(obj)``'s text without PyYAML, for what
-    :func:`load_yaml` reads: nested dicts with scalar keys, lists (also of
-    lists, and tuples written as lists), ints, floats, bools, strings and
-    None, in block style with sorted keys, so ``load_yaml(dump_yaml(x)) ==
+def dump_yaml(obj: Any, sort_keys: bool = True) -> str:
+    """``yaml.safe_dump(obj, sort_keys=sort_keys)``'s text without PyYAML,
+    for what :func:`load_yaml` reads: nested dicts with scalar keys, lists
+    (also of lists, and tuples written as lists), ints, floats, bools,
+    strings and None, in block style, so ``load_yaml(dump_yaml(x)) ==
     x``. Strings are never folded across lines (PyYAML folds scalars longer
     than 80 columns at their spaces); anything else raises
     :class:`YamlSubsetError`."""
     if isinstance(obj, (dict, list, tuple)) and obj:
-        return "\n".join(_dump_block(obj, 0)) + "\n"
+        return "\n".join(_dump_block(obj, 0, sort_keys)) + "\n"
     text = _dump_inline(obj)
     # PyYAML ends a document that is one plain scalar with an explicit end
     return text + ("\n...\n" if text[:1] not in "{['\"" else "\n")
 
 
-def load_cfg_from_file(path: str) -> dict:
+def load_cfg_from_file(path: str, freeze: bool = True) -> CfgNode:
     """Defaults strictly merged with a YAML file (read by :func:`load_yaml`,
-    no PyYAML needed), then validated."""
-    with open(path) as f:
-        data = load_yaml(f.read()) or {}
-    cfg = merge_from_dict(get_cfg_defaults(), data)
+    no PyYAML needed), validated, and frozen unless ``freeze`` is False."""
+    cfg = get_cfg_defaults().merge_from_file(path)
     validate_cfg(cfg)
-    return cfg
+    return cfg.freeze() if freeze else cfg
 
 
 def to_plain(obj: Any) -> Any:

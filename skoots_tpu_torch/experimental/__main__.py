@@ -40,7 +40,7 @@ def main(argv=None) -> int:
         from skoots_tpu_torch.config import load_cfg_from_file
         from skoots_tpu_torch.experimental.sparse_engine import train_sparse
 
-        cfg = load_cfg_from_file(args.config_file)
+        cfg = load_cfg_from_file(args.config_file, freeze=False)
         cfg["EXPERIMENTAL"]["IS_SPARSE"] = True
         train_sparse(cfg, steps_per_epoch=args.steps_per_epoch, device=args.device)
         return 0

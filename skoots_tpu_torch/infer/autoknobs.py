@@ -102,6 +102,15 @@ def derive_dilation(
     return d3, d_total - d3
 
 
+def suggest_dist_thr(object_radius_vox: Optional[float]) -> Optional[float]:
+    """Sparse training's ``DIST_THR`` suggestion: the embedding pull should
+    reach across one object radius (rounded to 0.1 voxel). None without a
+    radius estimate."""
+    if object_radius_vox is None or object_radius_vox <= 0:
+        return None
+    return float(round(object_radius_vox, 1))
+
+
 def suggest_dist_thr_from_points(skeletons: dict, sample_cap: int = 4000) -> Optional[float]:
     """Sparse training's ``DIST_THR`` suggestion from skeleton points alone:
     half the minimum spacing between points of DIFFERENT instances, the

@@ -1,9 +1,10 @@
 """Whole-volume segmentation with every buffer on the device.
 
-Port of ``skoots_tpu/infer/device_pipeline.py::make_chunked_pipeline``
+Port of ``skoots_tpu/infer/device_pipeline.py``: the single-program
+pipeline ``make_device_pipeline`` (:40-174), ``make_chunked_pipeline``
 (:274-509) with its fg-compacted assignment (``make_compact_assign_tile``,
-:177-245), and of its device-thrifty variant ``make_thrifty_pipeline``
-(:518-728):
+:177-245) and its wrapper ``segment_volume_chunked`` (:512), and the
+device-thrifty variant ``make_thrifty_pipeline`` (:518-728):
 
     volume [X, Y, Z] -> instance labels [X, Y, Z] int32, on the device
 
@@ -37,6 +38,7 @@ import torch
 from skoots_tpu_torch.ops.cropper import crop_origins
 from skoots_tpu_torch.ops.flood_fill import (
     _compact_labels,
+    _stepped_labeller,
     label_components_sparse,
     make_label_components_stepped,
     widen_u16,
@@ -192,6 +194,120 @@ def _dense_assign(vtile, fg, labels, o, volume_shape, vector_scale, n, decay,
     return tile_inst if fg is None else torch.where(fg, tile_inst, 0)
 
 
+def _forward_sweep(model, volume, mean, std, crop, pads, origins, interior,
+                   dtype, prob_threshold, sem_thr, dilation_3d, dilation_2d,
+                   device):
+    """Phase 1 of the whole-volume pipelines: normalise the volume (a numpy
+    array or a tensor) to f32, reflect-pad it, run the model over the tile
+    grid of :func:`_tile_grid` and store each tile's interior: the gated
+    vectors in ``dtype`` and the mask byte (bit 0 the dilated skeleton, bit
+    1 the semantic foreground). Returns ``(vectors [X, Y, Z, 3], mask bytes
+    [X, Y, Z])``, views of the padded buffers trimmed to the volume."""
+    if not torch.is_tensor(volume):
+        volume = torch.from_numpy(np.ascontiguousarray(volume))
+    vol = reflect_pad((volume.to(device).float() - float(mean)) / float(std), pads)
+    padded = tuple(vol.shape)
+    vec_buf = torch.zeros((*padded, 3), dtype=dtype, device=device)
+    skel_buf = torch.zeros(padded, dtype=torch.uint8, device=device)
+    for o in origins:
+        tile = vol[tuple(slice(oo, oo + c) for oo, c in zip(o, crop))]
+        out = model(tile[None, ..., None])[0]
+        vec, skel_u8, sem_u8 = tile_masks(out, prob_threshold, sem_thr,
+                                          dilation_3d, dilation_2d)
+        dst = tuple(slice(oo + s.start, oo + s.stop) for oo, s in zip(o, interior))
+        vec_buf[dst] = vec[interior].to(dtype)
+        skel_buf[dst] = (skel_u8 | (sem_u8 << 1))[interior]
+    del vol
+    trim = tuple(slice(p[0], p[0] + d) for p, d in zip(pads, volume.shape))
+    return vec_buf[trim], skel_buf[trim]
+
+
+def make_device_pipeline(
+    model,
+    volume_shape: Tuple[int, int, int],
+    crop: Tuple[int, int, int] = (256, 256, 16),
+    overlap: Tuple[int, int, int] = (16, 16, 2),
+    vector_scale: Sequence[float] = (60.0, 60.0, 12.0),
+    prob_threshold: float = 0.8,
+    embed_iterations: int = 10,
+    embed_exit_fraction: float | None = None,
+    embed_exit_cycle: bool = False,
+    embed_compact_div: int | None = None,
+    cc_rounds: int = 32,
+    cc_propagates_per_round: int = 128,
+    cc_jumps_per_round: int = 1,
+    dtype: torch.dtype = torch.bfloat16,
+    device=None,
+):
+    """The single-program whole-volume pipeline (port of
+    ``skoots_tpu/infer/device_pipeline.py::make_device_pipeline``): its own
+    defaults, one assignment grid equal to the forward's crop, and no
+    options beyond these.
+
+    Build ``run(volume, mean, std) -> int32 instance labels [X, Y, Z]`` on
+    ``device`` (by default the first CUDA card; asking for CUDA without one
+    raises) for one volume shape; ``model`` is the port's
+    ``SpatialEmbedding`` on that device. As JAX's:
+
+    1. the crop is clamped to the volume rounded down to a multiple of 4,
+       the overlap to a quarter of the crop; the volume is normalised and
+       reflect-padded by ``(o, max(o, c - (d + o)))`` an axis; each tile's
+       vectors are gated by ``prob > prob_threshold``, its skeleton
+       probability gated, dilated in 3D once and in-plane twice and then
+       thresholded; the interiors are stored, vectors rounded to ``dtype``;
+    2. the whole volume's CC of the dilated skeleton: JAX's
+       ``label_components`` with ``cc_rounds`` rounds of
+       ``cc_propagates_per_round`` propagate passes and ``cc_jumps_per_round``
+       pointer jumps (``SKOOTS_CC_IMPL`` and ``SKOOTS_CC_SCANS`` are not
+       read);
+    3. the assignment over tiles of the crop on the unpadded volume (no
+       overlap; the last origin of an axis is clamped, so tiles overlap and
+       later tiles overwrite earlier ones): the dense walk of the stored
+       vectors read back as f32, its end clipped to the volume, the label
+       there gated by the semantic bit.
+
+    ``run.last_phase_s`` holds the phase split of the last call,
+    ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC's telemetry
+    and ``run.tile_plan`` the tiles of phases 1 and 3.
+    """
+    device = resolve_device(device)
+    x, y, z = volume_shape
+    crop, pads, _, origins, interior = _tile_grid(volume_shape, crop, overlap)
+    # JAX's label_components reads no environment: the schedule as given
+    cc = _stepped_labeller((x, y, z), 1, 26, cc_propagates_per_round,
+                           cc_jumps_per_round, 0)
+    a_origins = crop_origins((x, y, z), crop, (0, 0, 0))
+
+    @torch.no_grad()
+    def run(volume, mean, std):
+        mark = _phase_clock(run, device)
+        vec_full, skel_full = _forward_sweep(
+            model, volume, mean, std, crop, pads, origins, interior, dtype,
+            prob_threshold, prob_threshold, 1, 2, device)
+        mark("1-forward")
+
+        labels = cc(skel_full & 1, max_rounds=cc_rounds)
+        run.last_cc_rounds = cc.last_rounds
+        run.last_cc_converged = cc.last_converged
+        mark("2-cc")
+
+        inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
+        for o in a_origins:
+            sl = tuple(slice(oo, oo + c) for oo, c in zip(o, crop))
+            inst[sl] = _dense_assign(
+                vec_full[sl].float(), (skel_full[sl] >> 1) > 0, labels, o,
+                (x, y, z), vector_scale, embed_iterations, 1.0,
+                embed_exit_fraction, embed_exit_cycle, embed_compact_div)
+        mark("3-assign")
+        return inst
+
+    run.last_phase_s = {}
+    run.last_cc_rounds = None
+    run.last_cc_converged = None
+    run.tile_plan = {"forward": len(origins), "assign": len(a_origins)}
+    return run
+
+
 def make_chunked_pipeline(
     model,
     volume_shape: Tuple[int, int, int],
@@ -242,9 +358,7 @@ def make_chunked_pipeline(
     """
     device = resolve_device(device)
     x, y, z = volume_shape
-    crop, pads, (px, py, pz), origins, interior = _tile_grid(
-        volume_shape, crop, overlap)
-    cx, cy, cz = crop
+    crop, pads, _, origins, interior = _tile_grid(volume_shape, crop, overlap)
     sem_thr = prob_threshold if semantic_threshold is None else semantic_threshold
     stepped_cc = make_label_components_stepped(
         (x, y, z), rounds_per_dispatch=1, propagates_per_round=cc_propagates_per_round,
@@ -259,26 +373,10 @@ def make_chunked_pipeline(
     @torch.no_grad()
     def run(volume, mean, std):
         mark = _phase_clock(run, device)
-        if not torch.is_tensor(volume):
-            volume = torch.from_numpy(np.ascontiguousarray(volume))
-        vol = volume.to(device)
-        vol = reflect_pad((vol.float() - float(mean)) / float(std), pads)
-        vec_buf = torch.zeros((px, py, pz, 3), dtype=dtype, device=device)
-        skel_buf = torch.zeros((px, py, pz), dtype=torch.uint8, device=device)
-        for o in origins:
-            tile = vol[o[0]:o[0] + cx, o[1]:o[1] + cy, o[2]:o[2] + cz]
-            out = model(tile[None, ..., None])[0]
-            vec, skel_u8, sem_u8 = tile_masks(out, prob_threshold, sem_thr,
-                                              dilation_3d, dilation_2d)
-            dst = tuple(slice(oo + s.start, oo + s.stop)
-                        for oo, s in zip(o, interior))
-            vec_buf[dst] = vec[interior].to(dtype)
-            skel_buf[dst] = (skel_u8 | (sem_u8 << 1))[interior]
+        vec_full, skel_full = _forward_sweep(
+            model, volume, mean, std, crop, pads, origins, interior, dtype,
+            prob_threshold, sem_thr, dilation_3d, dilation_2d, device)
         mark("1-forward")
-        del vol
-        trim = tuple(slice(p[0], p[0] + d) for p, d in zip(pads, (x, y, z)))
-        vec_full = vec_buf[trim]
-        skel_full = skel_buf[trim]
 
         sparse_ok = False
         run.last_sparse_cc = None
@@ -319,6 +417,13 @@ def make_chunked_pipeline(
     run.last_cc_converged = None
     run.tile_plan = {"forward": len(origins), "assign": len(a_origins)}
     return run
+
+
+def segment_volume_chunked(model, volume, mean, std, **kwargs):
+    """One call of :func:`make_chunked_pipeline` built for ``volume``'s
+    shape (``kwargs`` are its knobs, ``device`` among them)."""
+    run = make_chunked_pipeline(model, tuple(volume.shape), **kwargs)
+    return run(volume, mean, std)
 
 
 def _release_cache(device: torch.device) -> None:

@@ -5,7 +5,7 @@ heads at the model dtype, ``tanh`` on the 3 vector channels and ``sigmoid``
 on the skeleton and semantic channels (computed at the model dtype, as
 flax does), concatenated channels-last and cast to f32:
 ``out[..., 0:3]`` vectors, ``out[..., 3]`` skeleton, ``out[..., 4]``
-semantic probability.
+semantic probability (:func:`split_output`).
 """
 
 from __future__ import annotations
@@ -53,3 +53,9 @@ class SpatialEmbedding(nn.Module):
         y = dense(feat, w, b, self.compute_dtype)
         out = torch.cat([torch.tanh(y[..., 0:3]), torch.sigmoid(y[..., 3:5])], -1)
         return out.float()
+
+
+def split_output(out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(vectors ``[..., 3]``, skeleton probability ``[..., 1]``, semantic
+    probability ``[..., 1]``) of a channels-last model output, as views."""
+    return out[..., 0:3], out[..., 3:4], out[..., 4:5]

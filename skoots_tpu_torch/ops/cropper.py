@@ -2,11 +2,12 @@
 ``skoots_tpu/ops/cropper.py``): stride = crop - 2*overlap, edge tiles
 clamped to ``shape - crop``, plus the canonical tile-size ladder, rounded
 up (tiles reflect-padded past a short axis) or down (tiles sliced inside
-it)."""
+it), and the host-side helpers :func:`get_total_num_crops` and
+:func:`crops`."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -99,3 +100,26 @@ def bucketed_crop_size_down(
     return tuple(
         c if d >= c else bucket_down(d) for c, d in zip(crop_size, spatial_shape)
     )
+
+
+def get_total_num_crops(
+    spatial_shape: Sequence[int],
+    crop_size: Sequence[int],
+    overlap: Sequence[int],
+) -> int:
+    return len(crop_origins(spatial_shape, crop_size, overlap))
+
+
+def crops(
+    image,
+    crop_size: Sequence[int],
+    overlap: Sequence[int] = (0, 0, 0),
+) -> Iterator[Tuple[object, Tuple[int, ...]]]:
+    """Yield ``(crop, origin)`` over a channels-last volume ``[X, Y, Z, C]``
+    (or ``[X, Y, Z]``; a numpy array or a tensor, sliced as views). For
+    host-side tools; the inference paths cut their tiles from
+    :func:`crop_origins` themselves."""
+    spatial = tuple(image.shape[:3])
+    crop = effective_crop_size(spatial, crop_size)
+    for origin in crop_origins(spatial, crop, overlap):
+        yield image[tuple(slice(o, o + c) for o, c in zip(origin, crop))], origin

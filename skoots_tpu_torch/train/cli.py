@@ -84,7 +84,7 @@ def run_config(cfg_path: str, device, steps_per_epoch=None):
 
     from skoots_tpu_torch.utils.device import resolve_devices
 
-    cfg = load_cfg_from_file(cfg_path)
+    cfg = load_cfg_from_file(cfg_path, freeze=False)
     t = cfg["TRAIN"]
     device, devices = resolve_devices(device)
     if cfg["EXPERIMENTAL"]["IS_SPARSE"]:

@@ -12,6 +12,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from skoots_tpu_torch.ops.morphology import binary_erosion
+
 
 def tversky(alpha: float, beta: float, eps: float = 1e-8) -> Callable:
     """Tversky loss: ``alpha`` weighs false positives, ``beta`` false
@@ -105,6 +107,24 @@ def soft_dice_cldice(iters: int = 3, alpha: float = 0.5, smooth: float = 1.0) ->
 
     def fn(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
         return (1.0 - alpha) * _dice(pred, gt) + alpha * _cl(pred, gt)
+
+    return fn
+
+
+def split_loss(n_iter: int = 2, alpha: float = 2.0) -> Callable:
+    """Skeleton-breakage penalty: edges of the prediction crossing the
+    interior of the ground truth (weighted by a pseudo-distance from its
+    erosions) get an exponential penalty."""
+
+    def fn(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        pred, gt = pred.float(), gt.float()
+        distance, g = gt, gt
+        for _ in range(n_iter):
+            g = binary_erosion(g)
+            distance = distance + g
+        distance = distance / max(n_iter - 1, 1)
+        edges = (pred - binary_erosion(pred)) * 2.0
+        return torch.pow(edges.clamp_min(0.0), alpha * distance).mean()
 
     return fn
 

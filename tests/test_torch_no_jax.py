@@ -1,7 +1,7 @@
 """``skoots_tpu_torch`` and ``chip_smoke.py`` stand alone: they import no
-JAX, no flax and nothing of the JAX package, and nothing on the GPU path
-needs Pillow, PyYAML or msgpack at import time (the machine with the card
-has none of them)."""
+JAX, no flax, no yacs and nothing of the JAX package, and nothing on the
+GPU path needs Pillow, PyYAML or msgpack at import time (the machine with
+the card has none of them)."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "skoots_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "skoots_tpu", "PIL", "yaml",
-           "msgpack")
+           "msgpack", "yacs")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -48,7 +48,14 @@ EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample"
             "skoots_tpu_torch.utils.remove_margin", "skoots_tpu_torch.utils.renumber",
             "skoots_tpu_torch.utils.synthetic", "skoots_tpu_torch.tools.accuracy_campaign",
             "skoots_tpu_torch.parallel", "skoots_tpu_torch.parallel.mesh",
-            "skoots_tpu_torch.parallel.distributed", "skoots_tpu_torch.infer.sharded"}
+            "skoots_tpu_torch.parallel.distributed", "skoots_tpu_torch.infer.sharded",
+            "skoots_tpu_torch.infer", "skoots_tpu_torch.ops", "skoots_tpu_torch.kernels",
+            "skoots_tpu_torch.train", "skoots_tpu_torch.utils", "skoots_tpu_torch.models",
+            "skoots_tpu_torch.ops.morphology", "skoots_tpu_torch.ops.cropper",
+            "skoots_tpu_torch.infer.device_pipeline", "skoots_tpu_torch.utils.torch_compat",
+            "skoots_tpu_torch.train.checkpoint", "skoots_tpu_torch.train.losses",
+            "skoots_tpu_torch.models.spatial_embedding", "skoots_tpu_torch.infer.autoknobs",
+            "skoots_tpu_torch.config"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():
@@ -75,10 +82,12 @@ def _imports(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_anywhere(path):
     """Not even inside a function: the port never reaches the JAX package,
-    nor Pillow (TIFF goes through ``utils/tiff.py``)."""
+    nor Pillow (TIFF goes through ``utils/tiff.py``), nor yacs (a ``.trch``
+    whose cfg is a pickled yacs node needs it only to unpickle)."""
     for mod, at_top in _imports(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "skoots_tpu", "PIL"), mod
+        assert root not in ("jax", "jaxlib", "flax", "optax", "skoots_tpu", "PIL",
+                            "yacs"), mod
         if at_top:
             assert root not in ("yaml", "msgpack"), mod
 
