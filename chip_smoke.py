@@ -164,7 +164,18 @@ them. In order:
    ``state_dict`` layout, ``torch.save``d with a dict cfg, converted back
    by ``utils/torch_compat.py::convert_trch``: parameters bit for bit, the
    same mask);
-20. prints one JSON line of per-kernel results (each with its least time on
+20. the scale slice, ``run_scale`` right after the thrifty engine: the
+    scale tool (``skoots_tpu_torch.tools.bigvol_proof.prove``) in process
+    at 512x512x256 on a ``make_tubes_big`` phantom with the bench
+    checkpoint and the JAX tool's geometry, with ``auto`` (it must take
+    the chunked pipeline, its reserved peak at or under the estimate ``auto``
+    used, the CC converged) and with the host engine out of core, then
+    ``run_inference`` in RAM: the out-of-core mask the in-RAM one's up to
+    the numbering (their CC tiles differ), ``auto`` against the host engine
+    at F1@0.5 >= 0.95, every count in the phantom's band, launches exact;
+    every kernel against its plain version at the ``auto`` run's operand
+    shapes;
+21. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -1450,6 +1461,128 @@ def run_thrifty_engine(results: list, vol_u8, tile_bytes: int) -> None:
           f"auto: free {auto['free_bytes']} B not between the estimates "
           f"{json.dumps(auto['estimated_bytes'])}")
     shutil.rmtree(work, ignore_errors=True)
+
+
+# the scale slice's volume: 67 M voxels, over the host engine's 256^3, so
+# 'auto' sends it to a card; tubes placed by the scale tool's generator
+SCALE_VOLUME = (512, 512, 256)
+SCALE_TUBES = 24
+
+
+def _same_partition(a, b) -> bool:
+    """Whether two label volumes split the voxels the same way, up to the
+    numbering (on the card)."""
+    import torch
+
+    a = torch.from_numpy(np.asarray(a)).cuda().long().view(-1)
+    b = torch.from_numpy(np.asarray(b)).cuda().long().view(-1)
+    pairs = torch.unique(a * (int(b.max()) + 1) + b).numel()
+    return bool(((a == 0) == (b == 0)).all()) and \
+        pairs == torch.unique(a).numel() == torch.unique(b).numel()
+
+
+def run_scale(results: list) -> None:
+    """The scale tool's proof at ``SCALE_VOLUME`` (its function, in this
+    process; the full-size runs are the tool's own calls): ``auto`` must
+    choose the chunked pipeline and stay at or under its estimate, and the
+    host engine out of core must give the in-RAM run's partition. Launch
+    counts from 0 around each run: each forward kernel per forward (the 4
+    dilation-probe tiles, ``auto``'s measured tile, the tile plans),
+    propagate per CC round (the pipeline's 128 passes a round; the host
+    engine's one a round). Then every kernel against its plain version at
+    the operand shapes of the ``auto`` run (the levels of its 192x192x96
+    tiles and of the 256x256x64 tile ``auto`` measures, the whole-volume
+    CC's labels and mask)."""
+    import torch
+
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.ops import flood_fill
+    from skoots_tpu_torch.tools import bigvol_proof
+    from skoots_tpu_torch.tools.accuracy_campaign import score
+
+    ckpt = os.path.join(ROOT, "runs", "bench_ckpt.skoots")
+    work = os.path.join(ROOT, "build", "scale_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    saved = os.environ.get("SKOOTS_NO_TRACEMALLOC")
+    os.environ["SKOOTS_NO_TRACEMALLOC"] = "1"
+    t_phase = time.time()
+    try:
+        def band(tag, n, placed):
+            print(f"scale [{tag}]: {n} instances of {placed} placed", flush=True)
+            _need(0.8 * placed <= n <= placed + 4,
+                  f"scale [{tag}]: n_instances {n} outside [0.8*{placed}, {placed}+4]")
+
+        def check_forwards(tag, counts, forwards):
+            for name, k in FORWARD_KERNELS_PER_TILE.items():
+                _need(counts[name] == k * forwards,
+                      f"scale [{tag}] {name}: {counts[name]} launches, expected "
+                      f"{k} x {forwards}")
+
+        def prove(tag, engine_impl):
+            rec, counts, _ = _drive(f"scale [{tag}]", lambda: bigvol_proof.prove(
+                SCALE_VOLUME, work, "tubes", SCALE_TUBES, ckpt, engine_impl, tag,
+                "cuda"), results)
+            print(f"scale [{tag}]: {json.dumps({k: rec[k] for k in ('engine_ran', 'wall_s', 'auto', 'estimated_bytes', 'device_memory_stats', 'cc_rounds', 'cc_converged', 'vs_gt', 'peak_anon_rss_mb')})}",
+                  flush=True)
+            band(tag, rec["n_instances"], rec["n_placed"])
+            return rec, counts
+
+        seen: dict = {}
+        with _kernel_operands(seen, cc=flood_fill):
+            auto, counts = prove("auto", "auto")
+        _need(auto["engine_ran"] == "device", f"auto chose {auto['engine_ran']}")
+        _need(auto["reserved_within_estimate"],
+              f"auto: reserved {auto['reserved_peak_bytes']} B over the estimate "
+              f"{auto['estimated_bytes']} B")
+        _need(auto["cc_converged"], "auto: the CC stopped unconverged")
+        check_forwards("auto", counts, 4 + 1 + auto["phases"]["tile_plan"]["forward"])
+        per_round = len(prop_mod.launch_plan(128))
+        _need(counts["propagate"] == auto["cc_rounds"] * per_round > 0,
+              f"scale [auto] propagate: {counts['propagate']} launches, expected "
+              f"{auto['cc_rounds']} rounds x {per_round}")
+
+        host, counts = prove("host_ooc", None)
+        phases = host["phases"]
+        _need(host["engine_ran"] == "host" and host["out_of_core"],
+              "the host run was not out of core")
+        check_forwards("host_ooc", counts, 4 + phases["phase1"]["tiles"]
+                       + phases["phase3"]["tiles"])
+        _need(counts["propagate"] == host["cc_rounds"] > 0,
+              f"scale [host_ooc] propagate: {counts['propagate']} launches, "
+              f"expected {host['cc_rounds']} CC rounds")
+
+        # the same run in RAM, with the knobs the first baked into its buffers
+        knobs = json.load(open(os.path.join(work, "bigvol_tubes_skoots_phase1.json")))
+        in_ram, counts, _ = _drive("scale [host_in_ram]", lambda: engine.run_inference(
+            os.path.join(work, "bigvol_tubes.npy"), ckpt, crop_size=bigvol_proof.CROP,
+            overlap=bigvol_proof.OVERLAP, assign_crop_size=bigvol_proof.ASSIGN_CROP,
+            assign_overlap=bigvol_proof.ASSIGN_OVERLAP, engine_impl="host",
+            out_of_core=False, wire_mode="recompute", dilation_3d=knobs["dilation_3d"],
+            dilation_2d=knobs["dilation_2d"],
+            output_path=os.path.join(work, "in_ram.npy")), results)
+        stats = engine.last_stats
+        _need(stats["engine"] == "host" and not stats["out_of_core"], "in RAM: wrong engine")
+        check_forwards("host_in_ram", counts, stats["phase1"]["tiles"]
+                       + stats["phase3"]["tiles"])
+        ooc = np.load(os.path.join(work, "instance_host_ooc.npy"), mmap_mode="r")
+        _need(_same_partition(in_ram, ooc),
+              "the out-of-core host run's mask differs from the in-RAM run's")
+        print("scale: out-of-core mask equal to the in-RAM one up to the numbering",
+              flush=True)
+        agree = score(ooc, np.load(os.path.join(work, "instance_auto.npy"), mmap_mode="r"),
+                      "cuda")
+        print(f"scale: auto against host {json.dumps(agree)}", flush=True)
+        _need(agree["f1_at_iou50"] >= 0.95, f"scale: auto against host F1 {agree}")
+        _check_sharded_kernels(results, seen, "the scale run's whole-volume CC input")
+    finally:
+        if saved is None:
+            os.environ.pop("SKOOTS_NO_TRACEMALLOC", None)
+        else:
+            os.environ["SKOOTS_NO_TRACEMALLOC"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"scale: phase {time.time() - t_phase:.1f} s", flush=True)
 
 
 def check_sparse_probe(results: list, ckpt, model, volume) -> None:
@@ -3284,6 +3417,7 @@ def main() -> int:
     run_thrifty_engine(results, vol_u8, tile_bytes)
     del vol_u8
     torch.cuda.empty_cache()
+    run_scale(results)
     run_sharded(results)
     check_grads_against_cpu()
     records = run_train_slice(results)

@@ -71,6 +71,35 @@ def reflect_pad(vol: torch.Tensor, pads) -> torch.Tensor:
     return vol
 
 
+def normalized_reflect_pad(volume: torch.Tensor, mean: float, std: float, pads,
+                           device) -> torch.Tensor:
+    """``reflect_pad((volume.float() - mean) / std, pads)`` on ``device``,
+    built in one f32 buffer: the normalised interior in place, then each
+    axis's pads copied from it (axes before it already padded, the ones
+    after it still their interior, as the chain of ``index_select`` does).
+    The padded volume is the only f32 volume held; a whole-volume chain
+    would leave each of its f32 intermediates in the allocator's cache."""
+    src = volume.to(device)
+    shape = tuple(src.shape)
+    buf = torch.empty(tuple(d + lo + hi for d, (lo, hi) in zip(shape, pads)),
+                      dtype=torch.float32, device=device)
+    inner = tuple(slice(lo, lo + d) for d, (lo, _) in zip(shape, pads))
+    buf[inner].copy_(src)
+    del src
+    buf[inner].sub_(float(mean)).div_(float(std))
+    for ax, (lo, hi) in enumerate(pads):
+        if not (lo or hi):
+            continue
+        view = buf[(slice(None),) * (ax + 1) + inner[ax + 1:]]
+        src_idx = _reflect_index(shape[ax], lo, hi, device) + lo
+        if lo:
+            view.narrow(ax, 0, lo).copy_(view.index_select(ax, src_idx[:lo]))
+        if hi:
+            view.narrow(ax, lo + shape[ax], hi).copy_(
+                view.index_select(ax, src_idx[lo + shape[ax]:]))
+    return buf
+
+
 def tile_masks(out: torch.Tensor, prob_threshold: float, sem_thr: float,
                dilation_3d: int, dilation_2d: int):
     """Per-tile phase-1 decisions from the model output ``[..., X, Y, Z, 5]``:
@@ -205,7 +234,7 @@ def _forward_sweep(model, volume, mean, std, crop, pads, origins, interior,
     [X, Y, Z])``, views of the padded buffers trimmed to the volume."""
     if not torch.is_tensor(volume):
         volume = torch.from_numpy(np.ascontiguousarray(volume))
-    vol = reflect_pad((volume.to(device).float() - float(mean)) / float(std), pads)
+    vol = normalized_reflect_pad(volume, mean, std, pads, device)
     padded = tuple(vol.shape)
     vec_buf = torch.zeros((*padded, 3), dtype=dtype, device=device)
     skel_buf = torch.zeros(padded, dtype=torch.uint8, device=device)
@@ -339,6 +368,8 @@ def make_chunked_pipeline(
     one raises) for one volume shape; ``model`` is the port's
     ``SpatialEmbedding`` on that device.
 
+    On a card the allocator's cache is released at the start and after
+    phases 1 and 2 (:func:`_release_cache`), as the thrifty pipeline's.
     Knobs are the JAX package's. ``embed_compact_div`` (with the semantic
     gate) selects the fg-compacted assignment; torch's ``nonzero`` needs no
     capacity, so its value only switches the path on. ``cc_impl``
@@ -373,9 +404,11 @@ def make_chunked_pipeline(
     @torch.no_grad()
     def run(volume, mean, std):
         mark = _phase_clock(run, device)
+        _release_cache(device)
         vec_full, skel_full = _forward_sweep(
             model, volume, mean, std, crop, pads, origins, interior, dtype,
             prob_threshold, sem_thr, dilation_3d, dilation_2d, device)
+        _release_cache(device)
         mark("1-forward")
 
         sparse_ok = False
@@ -393,6 +426,7 @@ def make_chunked_pipeline(
             run.last_cc_impl = "dense"
             run.last_cc_rounds = stepped_cc.last_rounds
             run.last_cc_converged = stepped_cc.last_converged
+        _release_cache(device)
         mark("2-cc")
 
         inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
@@ -568,10 +602,12 @@ def make_thrifty_pipeline(
 def estimated_device_bytes(volume_shape, thrifty: bool = False,
                            itemsize: int = 1, tile_bytes: int = 0) -> int:
     """Peak device memory of :func:`make_chunked_pipeline`: 24 B a voxel
-    (phase 1: the padded f32 volume 4, bf16 vectors 6, the mask byte 1;
-    phase 2: vectors and mask 7, the CC's fg 1, labels 4 and scratch 4;
-    phase 3: vectors and mask 7, labels 4, instances 4; the rest covers the
-    input's f32 copies at the start and the allocator's rounding). With
+    (phase 1: the native volume briefly, the padded f32 volume 4 built in
+    place (:func:`normalized_reflect_pad`), bf16 vectors 6, the mask byte
+    1; phase 2: vectors and mask 7, the CC's fg 1 and its bool test 1,
+    labels 4 and scratch 4, 17 in all; phase 3: vectors and mask 7, labels
+    4, instances 4; the rest covers the allocator's rounding and the
+    segments a phase's tiles leave, released at the phase ends). With
     ``thrifty``, :func:`make_thrifty_pipeline`'s: 12 B a voxel and the
     native volume's ``itemsize`` (phase 2: the volume, the mask as the CC's
     fg 1, labels 4, scratch 4 and the fg test 1, with 2 to spare), 13 for

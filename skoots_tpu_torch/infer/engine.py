@@ -101,6 +101,9 @@ RESERVED_PER_LIVE_BYTE = 2
 
 # 'auto' takes the host-streaming engine up to this many voxels
 HOST_ENGINE_MAX_VOXELS = 256**3
+# the whole-volume pipelines address voxels with int32 (their CC raises at
+# 2^31 voxels, ``ops/flood_fill.py``); the host engine's CC works per tile
+DEVICE_ENGINE_MAX_VOXELS = 2**31 - 1
 
 
 def _pad_amounts(dim: int, crop: int, ov: int) -> Tuple[int, int]:
@@ -502,6 +505,26 @@ def _forward_bytes_per_voxel(model, prob_threshold: float, device: torch.device)
     return -(-RESERVED_PER_LIVE_BYTE * live // int(np.prod(FORWARD_PROBE)))
 
 
+def choose_engine(volume_shape, itemsize: int, free_bytes: int,
+                  tile_bytes: int) -> Tuple[str, dict]:
+    """'auto''s engine for a volume over :data:`HOST_ENGINE_MAX_VOXELS` on a
+    card with ``free_bytes`` free: the chunked pipeline ('device') when its
+    estimate fits, else the thrifty one when that estimate fits, else the
+    host engine; the host engine too past :data:`DEVICE_ENGINE_MAX_VOXELS`,
+    where neither pipeline can run. Returns ``(engine, estimates)``, the
+    estimates by engine (:func:`estimated_device_bytes` with one forward
+    tile's ``tile_bytes``; ``itemsize`` is the volume's)."""
+    est = {"device": estimated_device_bytes(volume_shape, tile_bytes=tile_bytes),
+           "device-thrifty": estimated_device_bytes(
+               volume_shape, thrifty=True, itemsize=itemsize, tile_bytes=tile_bytes)}
+    if int(np.prod(volume_shape, dtype=np.int64)) > DEVICE_ENGINE_MAX_VOXELS:
+        return "host", est
+    for name in ("device", "device-thrifty"):
+        if est[name] <= free_bytes:
+            return name, est
+    return "host", est
+
+
 def _device_geometry(volume_shape, crop, crop_size, overlap, assign_crop_size):
     """The whole-volume pipeline's (tile, overlap, assign tile or None):
     explicit caller geometry wins; the reference defaults mean "unset" and
@@ -583,9 +606,10 @@ def run_inference(
     device-thrifty form when only that one's estimate fits (each estimate
     is per-voxel buffers plus one forward tile's peak, which 'auto'
     measures with a zero tile; on the CPU no device limit exists, so 'auto'
-    means host there). ``out_of_core`` (default: over 256^3 voxels)
-    keeps every full-volume host buffer in ``.npy`` memmaps beside the
-    image. ``wire_mode`` ('auto' | 'store' | 'recompute'; env
+    means host there), and the host engine again from 2^31 voxels, past
+    the pipelines' int32 addresses (:func:`choose_engine`).
+    ``out_of_core`` (default: over 256^3 voxels) keeps every full-volume
+    host buffer in ``.npy`` memmaps beside the image. ``wire_mode`` ('auto' | 'store' | 'recompute'; env
     ``SKOOTS_WIRE_MODE``): 'store' keeps the f16 vector field for phase 3,
     'recompute' runs the forward again per assign tile; 'auto' recomputes
     out of core. Returns the instance mask ``[X, Y, Z]`` int32, labelled
@@ -732,17 +756,12 @@ def run_inference(
                 tile_bytes = _forward_tile_bytes(
                     model, [dev_crop, dev_assign or dev_crop], prob_threshold,
                     semantic_threshold, dilation_3d, dilation_2d, device)
-                est = {"device": estimated_device_bytes(
-                           (x, y, z), tile_bytes=tile_bytes),
-                       "device-thrifty": estimated_device_bytes(
-                           (x, y, z), thrifty=True,
-                           itemsize=volume.dtype.itemsize, tile_bytes=tile_bytes)}
+                choice, est = choose_engine((x, y, z), volume.dtype.itemsize,
+                                            limit, tile_bytes)
                 stats["auto"] = {"free_bytes": limit, "tile_bytes": tile_bytes,
                                  "estimated_bytes": est}
-                if est["device"] <= limit:
-                    use_device_engine = True
-                elif est["device-thrifty"] <= limit:
-                    use_device_engine = thrifty = True
+                use_device_engine = choice != "host"
+                thrifty = choice == "device-thrifty"
 
         if use_device_engine:
             instance_mask = _run_device_engine(
@@ -763,6 +782,7 @@ def run_inference(
 
         stats["engine"] = "host"
         stats["device"] = str(device)
+        stats["out_of_core"] = bool(out_of_core)
         pin = device.type == "cuda"
         # ------------------------------------------------------------ phase 1
         if cache_hit:
@@ -847,6 +867,8 @@ def run_inference(
                            "cc_crop": list(cc_crop),
                            "max_label": cc_info.get("max_label"),
                            "cc_rounds": cc_info.get("rounds"),
+                           "cc_converged": cc_info.get("converged"),
+                           "cc_unconverged_tiles": cc_info.get("unconverged_tiles"),
                            "cc_tiles": cc_info.get("cc_tiles")}
 
         # ------------------------------------------------------------ phase 3
@@ -1084,11 +1106,14 @@ def _run_device_engine(model, volume, mean, std, device, stats, crop,
         device=device)
     bench_start = time.time()
     # widened on the host: a 16-bit mask crosses the wire as it is
-    instance_mask = widen_u16(run(volume, mean, std).cpu()).numpy().astype(np.int32)
+    instance_mask = widen_u16(run(volume, mean, std).cpu()).numpy().astype(
+        np.int32, copy=False)
     stats["engine"] = "device-thrifty" if thrifty else "device"
     stats["device"] = str(device)
+    stats["out_of_core"] = False
     stats["phase_s"] = dict(run.last_phase_s)
     stats["tile_plan"] = dict(run.tile_plan)
     stats["cc_rounds"] = run.last_cc_rounds
+    stats["cc_converged"] = run.last_cc_converged
     stats["e2e_s"] = round(time.time() - bench_start, 3)
     return instance_mask

@@ -462,8 +462,11 @@ def efficient_flood_fill(
     a tile whose ``ok`` is False; anything else runs the dense engine.
     ``info`` receives ``max_label`` (a bound on the labels when compact,
     else None), ``rounds`` (dense CC rounds summed over the tiles; one
-    propagation pass each) and ``cc_tiles`` (tiles labelled by each
-    engine). Returns the int32 labels.
+    propagation pass each), ``converged`` (every dense tile reached its
+    fixpoint within ``max_rounds``; a tile that did not is labelled again
+    without the bound, so the labels are exact either way, and
+    ``unconverged_tiles`` counts those) and ``cc_tiles`` (tiles labelled by
+    each engine). Returns the int32 labels.
     """
     device = torch.device(device)
     use_sparse = os.environ.get("SKOOTS_CC_IMPL", cc_impl) == "sparse"
@@ -485,6 +488,7 @@ def efficient_flood_fill(
     seams_per_axis: List[set] = [set(), set(), set()]
     next_label = 0  # running component count (compact mode only)
     rounds = 0
+    unconverged = 0
     cc_tiles = {"sparse": 0, "dense": 0}
     with torch.no_grad():
         for t, origin in enumerate(origins):
@@ -500,8 +504,16 @@ def efficient_flood_fill(
                 if ok:
                     engine = "sparse"
             if engine == "dense":
-                labeled = label_components(binary, max_rounds=max_rounds)
+                labeled, done = label_components(binary, max_rounds=max_rounds,
+                                                 return_converged=True)
                 rounds += label_components.last_rounds
+                if not done:
+                    # a long thin path whose voxel order defeats the pointer
+                    # jumps gains ~1 voxel a round: run it to its fixpoint,
+                    # which comes within the tile's voxel count of rounds
+                    unconverged += 1
+                    labeled = label_components(binary, max_rounds=binary.numel())
+                    rounds += label_components.last_rounds
             cc_tiles[engine] += 1
             if compact:
                 labeled, c = _compact_labels(labeled)
@@ -546,6 +558,8 @@ def efficient_flood_fill(
         # seam merges only lower labels, so the pre-merge count bounds them
         info["max_label"] = next_label if compact else None
         info["rounds"] = rounds
+        info["converged"] = unconverged == 0
+        info["unconverged_tiles"] = unconverged
         info["cc_tiles"] = cc_tiles
     if relabel_sequential:
         renumber_inplace(out)
@@ -566,22 +580,37 @@ def remap_labels(
     return flat.reshape(x.shape).astype(x.dtype)
 
 
+def _remap_chunks(x: np.ndarray, out: np.ndarray, to_replace: np.ndarray,
+                  replace_with: np.ndarray, chunk: int = 8) -> None:
+    """:func:`remap_labels` of ``x`` into ``out`` (``x`` itself for in
+    place), ``chunk`` planes of axis 0 at a time: its int64 temporaries
+    span a chunk, never the volume."""
+    for i in range(0, x.shape[0], chunk):
+        out[i : i + chunk] = remap_labels(np.asarray(x[i : i + chunk]),
+                                          to_replace, replace_with)
+
+
 def remap_labels_inplace(x: np.ndarray, to_replace: np.ndarray,
                          replace_with: np.ndarray, chunk: int = 8) -> None:
     """Chunked in-place remap along axis 0 (a memmap is never copied
     whole)."""
+    _remap_chunks(x, x, to_replace, replace_with, chunk)
+
+
+def _nonzero_labels(x: np.ndarray, chunk: int = 8) -> np.ndarray:
+    """The sorted nonzero labels of ``x`` (int64), ``chunk`` planes at a
+    time."""
+    uniq = np.array([], dtype=np.int64)
     for i in range(0, x.shape[0], chunk):
-        blk = np.asarray(x[i : i + chunk])
-        x[i : i + chunk] = remap_labels(blk, to_replace, replace_with)
+        u = np.unique(np.asarray(x[i : i + chunk]))
+        uniq = np.union1d(uniq, u[u != 0])
+    return uniq
 
 
 def renumber_inplace(x: np.ndarray, chunk: int = 8) -> int:
     """Compact labels to 1..N in place, chunk by chunk (bounded memory on
     memmaps). Returns N."""
-    uniq = np.array([], dtype=np.int64)
-    for i in range(0, x.shape[0], chunk):
-        u = np.unique(np.asarray(x[i : i + chunk]))
-        uniq = np.union1d(uniq, u[u != 0])
+    uniq = _nonzero_labels(x, chunk)
     if len(uniq) == 0:
         return 0
     vals = np.arange(1, len(uniq) + 1, dtype=np.int64)
@@ -595,8 +624,8 @@ def drop_small_instances(
     """Zero instance ids whose voxel count is below a floor (speck filter).
 
     ``0`` disables; ``-1`` (auto) uses ``min(1% of the 75th-percentile
-    instance size, 64)``. A memmap is changed in place, chunk by chunk;
-    an in-memory array is copied only when something is dropped. Returns
+    instance size, 64)``. A memmap is changed in place; an in-memory array
+    is copied only when something is dropped; both chunk by chunk. Returns
     ``(mask, n_dropped)``.
     """
     if min_size == 0:
@@ -618,19 +647,21 @@ def drop_small_instances(
     if small.size == 0:
         return x, 0
     zeros = np.zeros(small.size, dtype=np.int64)
-    if isinstance(x, np.memmap):
-        remap_labels_inplace(x, small, zeros, chunk=chunk)
-        return x, int(small.size)
-    return remap_labels(x, small, zeros), int(small.size)
+    out = x if isinstance(x, np.memmap) else np.empty_like(x)
+    _remap_chunks(x, out, small, zeros, chunk)
+    return out, int(small.size)
 
 
-def renumber(x: np.ndarray) -> Tuple[np.ndarray, Dict[int, int]]:
-    """Compact labels to 1..N preserving 0 (fastremap.renumber equivalent)."""
-    uniq = np.unique(x)
-    uniq = uniq[uniq != 0]
+def renumber(x: np.ndarray, chunk: int = 8) -> Tuple[np.ndarray, Dict[int, int]]:
+    """Compact labels to 1..N preserving 0 (fastremap.renumber equivalent),
+    into a new int32 array, ``chunk`` planes of axis 0 at a time (the
+    temporaries span a chunk: a whole-volume int64 remap would hold about
+    34 B a voxel)."""
+    x = np.asarray(x)
+    uniq = _nonzero_labels(x, chunk)
     mapping = {int(u): i + 1 for i, u in enumerate(uniq)}
     if len(uniq) == 0:
         return x.astype(np.int32), {}
-    out = remap_labels(x.astype(np.int64), uniq.astype(np.int64),
-                       np.arange(1, len(uniq) + 1, dtype=np.int64))
-    return out.astype(np.int32), mapping
+    out = np.empty(x.shape, np.int32)
+    _remap_chunks(x, out, uniq, np.arange(1, len(uniq) + 1, dtype=np.int64), chunk)
+    return out, mapping
