@@ -175,7 +175,21 @@ them. In order:
     at F1@0.5 >= 0.95, every count in the phantom's band, launches exact;
     every kernel against its plain version at the ``auto`` run's operand
     shapes;
-21. prints one JSON line of per-kernel results (each with its least time on
+21. the wide slice, ``run_wide`` right after 7: the 1.5x-wide UNeXT3D
+    (``MODEL.DIMS`` 48-96-192-96-48, depth 2, 48 outputs, random weights
+    from the seed, saved under ``build/``) through ``make_chunked_pipeline``
+    on the 512^3 phantom at the bench knobs: launches exact, every block
+    tail and LN head launch on a width-class or staged kernel (the route
+    query), each against its plain version at the run's operand shapes,
+    ``1-forward`` cold and warm beside the bench model's, one tile's
+    prob > 0.8 decisions kernels vs plain versions on the card (the share
+    equal printed beside the bench model's; every voxel farther than
+    ``DECISION_MARGIN`` from 0.8 alike), one f32 train step card vs CPU at
+    those widths; the kernel
+    checks of 3 also at its shapes (``WIDE_TAIL_CASES``,
+    ``WIDE_LN_HEAD_CASES``), and every tail and LN-head check asserts its
+    route;
+22. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -205,6 +219,7 @@ import time
 import numpy as np
 
 # one roofline and one set of training-kernel cases with the card's tool
+from skoots_tpu_torch.tools.bench_tail_head import head_ops, tail_ops
 from skoots_tpu_torch.tools.bench_train_kernels import (ANISO, bake_bound, bake_cases, bound,
                                                         nbytes, wgrad_bound, wgrad_inputs)
 
@@ -312,12 +327,24 @@ CAMPAIGN_WGRAD_CASES = (
     ((1, 48, 48, 16), 32, 32, 7, "bf16"), ((1, 24, 24, 8), 64, 64, 7, "bf16"),
     ((1, 96, 96, 32), 16, 16, 9, "bf16"), ((1, 96, 96, 32), 1, 16, 9, "bf16"),
     ((1, 48, 48, 16), 32, 32, 11, "bf16"), ((2, 24, 20, 12), 32, 32, 9, "f32"))
-# the block tail's work on the FP32 pipe, in instructions (issue slots of
-# one lane): per hidden value the bias add, three roundings, an erf (about
-# 9) and the GELU's 3 -- 16; per channel of the LayerNorm 8 (sum, centre,
-# square and sum, scale, affine, round); per output value 7 (bias, layer
-# scale and residual with their four roundings)
-TAIL_FP32_PER_HIDDEN, TAIL_FP32_PER_LN, TAIL_FP32_PER_OUT = 16, 8, 7
+# the 1.5x-wide UNeXT3D of run_wide (the bench checkpoint's cfg otherwise,
+# random weights from SEED): every block tail runs at C = 48, 96 or 192 and
+# the LN head at 48 -> 48, off the tensor-core templates' widths
+WIDE_MODEL = {"DIMS": [48, 96, 192, 96, 48], "DEPTHS": [2, 2, 2, 2, 2], "KERNEL_SIZE": 7,
+              "OUT_CHANNELS": 48}
+# its block tails and LN head at the bench tile's three levels and at the
+# thrifty assign tile's (V, C, dtype) / (V, C, N, dtype); drawn on the card
+# from a generator of their own
+WIDE_TAIL_CASES = tuple((x * y * z, c, "bf16") for (x, y, z), c in (
+    ((256, 256, 96), 48), ((128, 128, 48), 96), ((64, 64, 24), 192),
+    ((256, 256, 64), 48), ((128, 128, 32), 96), ((64, 64, 16), 192)))
+WIDE_LN_HEAD_CASES = ((256 * 256 * 96, 48, 48, "bf16"), (256 * 256 * 64, 48, 48, "bf16"))
+# run_wide's decisions: a voxel whose plain probability lies farther than
+# this from 0.8 (8 bf16 ulps there) must decide alike with the kernels. The
+# random-weight wide model puts 2% of a tile within a bf16 ulp of 0.8,
+# where any kernel's last-bit difference (the dwconv's alone, as much as
+# all four) flips 0.3-0.4% of the decisions
+DECISION_MARGIN = 2.0 ** -5
 REPEATS = 5
 # sparse training (the bench training cfg, IS_SPARSE): steps an epoch of its
 # 2 epochs, the background's least distance from a tube, the points of its
@@ -329,8 +356,10 @@ SPARSE_BLOCK = (slice(64, 192), slice(64, 192), slice(96, 160))
 FORWARD_KERNELS_PER_TILE = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1,
                             "upsample2x": 2}
 # the hand-written kernels that must run on the tensor cores (bf16)
-TENSOR_CORE_KERNELS = ("tail_tc_kernel", "dwconv3d_tc_kernel", "stem_gemm_kernel",
-                       "ln_head_tc_kernel", "dwconv3d_wgrad_tc_kernel", "stem_wgrad_tc_kernel")
+TENSOR_CORE_KERNELS = ("tail_tc_kernel", "tail_class_kernel", "tail_staged_kernel",
+                       "dwconv3d_tc_kernel", "stem_gemm_kernel", "ln_head_tc_kernel",
+                       "ln_head_class_kernel", "dwconv3d_wgrad_tc_kernel",
+                       "stem_wgrad_tc_kernel")
 
 
 def _need(cond: bool, what: str) -> None:
@@ -491,15 +520,19 @@ def _check_tail(results, r, v, c, dtn, repeats=REPEATS) -> None:
     """The fused block tail at ``v`` rows of ``c`` channels; bound atol
     4e-3, rtol 1e-3. Least work: the bytes, the two products on the
     tensor cores, and the LayerNorm, GELU and roundings on the FP32 pipe
-    (TAIL_FP32_*). The plain composition xla_tail (two cuBLAS GEMMs and
+    (``tools/bench_tail_head.py::tail_ops``). The plain composition xla_tail (two cuBLAS GEMMs and
     elementwise kernels) is timed as a yardstick: no single library call
     computes the function, so the JSON line's library_ms stays null."""
     import torch
 
-    from skoots_tpu_torch.kernels.mlp import mlp_block_tail, mlp_block_tail_ref, xla_tail
+    from skoots_tpu_torch.kernels.mlp import (TAIL_KERNELS, mlp_block_tail, mlp_block_tail_ref,
+                                              mlp_tail_route, xla_tail)
 
     bf = torch.bfloat16
     dt = bf if dtn == "bf16" else torch.float32
+    route = mlp_tail_route(dt, c)
+    _need(route is not None and route.startswith(TAIL_KERNELS),
+          f"mlp_block_tail: C={c} {dtn} routes to {route}")
     x = _randn(r, (v, c), dtype=dt)
     s = _randn(r, (v, c), 0.1, dtype=dt)
     ls = _randn(r, (c,), 0.1) + 1.0
@@ -517,18 +550,14 @@ def _check_tail(results, r, v, c, dtn, repeats=REPEATS) -> None:
     err_abs = float(diff.max())
     excess = float((diff - 1e-3 * ref.float().abs()).max())
     del diff, ref
-    fp32 = v * c * (4 * TAIL_FP32_PER_HIDDEN + TAIL_FP32_PER_LN + TAIL_FP32_PER_OUT)
-    if dt == bf:
-        ops = {"tensor_flops": 16.0 * v * c * c, "fp32_flops": 2.0 * fp32}
-    else:
-        ops = {"fp32_flops": 16.0 * v * c * c + 2.0 * fp32}
     comp_ms = _time_ms(lambda: xla_tail(*args), repeats)
     _record(results, "mlp_block_tail", "skoots_tpu_torch/csrc/mlp.cu",
             "skoots_tpu/kernels/mlp.py:99", excess, err_abs, 4e-3,
-            f"(|d| - 1e-3|ref|) at V={v} C={c} {dtn}",
+            f"(|d| - 1e-3|ref|) at V={v} C={c} {dtn} [{route}]",
             _time_ms(lambda: mlp_block_tail(*args), repeats),
             _time_ms(lambda: mlp_block_tail_ref(*args), repeats),
-            bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
+            bound(nbytes(*args, got), **tail_ops(v, c, dtn)),
+            note=f" composition {comp_ms:.3f} ms")
 
 
 def _check_ln_head(results, r, v, c, n, dtn, repeats=REPEATS) -> None:
@@ -537,15 +566,19 @@ def _check_ln_head(results, r, v, c, n, dtn, repeats=REPEATS) -> None:
     order could change are recomputed in the plain order; f32: the plain
     order). Least work: the bytes, the products on the tensor cores (bf16)
     or the FP32 pipe (f32), and the LayerNorm on the FP32 pipe
-    (TAIL_FP32_PER_LN). The plain composition xla_ln_head (a cuBLAS GEMM
+    (``head_ops``). The plain composition xla_ln_head (a cuBLAS GEMM
     and elementwise kernels) is timed as a yardstick: no single library
     call computes the function, so the JSON line's library_ms stays null."""
     import torch
 
-    from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_ref, xla_ln_head
+    from skoots_tpu_torch.kernels.lnhead import (HEAD_KERNELS, ln_head, ln_head_ref,
+                                                 ln_head_route, xla_ln_head)
 
     bf = torch.bfloat16
     dt = bf if dtn == "bf16" else torch.float32
+    route = ln_head_route(dt, c, n)
+    _need(route is not None and route.startswith(HEAD_KERNELS),
+          f"ln_head: C={c} N={n} {dtn} routes to {route}")
     x = _randn(r, (v, c), dtype=dt)
     ls = _randn(r, (c,), 0.1) + 1.0
     lb = _randn(r, (c,), 0.1)
@@ -559,18 +592,14 @@ def _check_ln_head(results, r, v, c, n, dtn, repeats=REPEATS) -> None:
     err_abs = float((got.float() - ref.float()).abs().max())
     ulps = bf16_ulps(got, ref)
     del ref
-    fp32 = 2.0 * v * c * TAIL_FP32_PER_LN
-    if dt == bf:
-        ops = {"tensor_flops": 2.0 * v * c * n, "fp32_flops": fp32}
-    else:
-        ops = {"fp32_flops": 2.0 * v * c * n + fp32}
     comp_ms = _time_ms(lambda: xla_ln_head(*args), repeats)
     _record(results, "ln_head", "skoots_tpu_torch/csrc/lnhead.cu",
             "skoots_tpu/kernels/lnhead.py:53", float(differing), err_abs, 0.0,
-            f"values differing ({ulps:.3g} bf16 ulp) at V={v} C={c}->{n} {dtn}",
+            f"values differing ({ulps:.3g} bf16 ulp) at V={v} C={c}->{n} {dtn} [{route}]",
             _time_ms(lambda: ln_head(*args), repeats),
             _time_ms(lambda: ln_head_ref(*args), repeats),
-            bound(nbytes(*args, got), **ops), note=f" composition {comp_ms:.3f} ms")
+            bound(nbytes(*args, got), **head_ops(v, c, n, dtn)),
+            note=f" composition {comp_ms:.3f} ms")
 
 
 def _check_upsample(results, r, shape, dt, repeats=REPEATS) -> None:
@@ -632,6 +661,13 @@ def check_kernels() -> list:
         _check_tail(results, rng if i < len(TAIL_CASES) else extra, *case)
     for i, case in enumerate(LN_HEAD_CASES + CAMPAIGN_LN_HEAD_CASES):
         _check_ln_head(results, rng if i < len(LN_HEAD_CASES) else extra, *case)
+    # the wide model's shapes (run_wide), from a generator on the card
+    wide = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for case in WIDE_TAIL_CASES:
+        _check_tail(results, wide, *case)
+    for case in WIDE_LN_HEAD_CASES:
+        _check_ln_head(results, wide, *case)
+    torch.cuda.empty_cache()
 
     # 4. label propagation, Q = 4 passes, 26-conn, over the whole volume;
     #    exact. Foreground: 30% random voxels, which percolate, so labels
@@ -1234,6 +1270,142 @@ def check_against_cpu(ckpt, model, volume, min_instances: int = 1) -> None:
           f"min IoU {min(ious, default=0.0):.4f}", flush=True)
     _need(len(ids) >= min_instances and n_card == len(ids) and min(ious, default=1.0) >= 0.95,
           "the card's instances differ from the plain versions' on the CPU")
+
+
+@contextlib.contextmanager
+def _plain_model_kernels(names):
+    """While open, the model's forward kernels named in ``names``
+    (``models/unext.py``'s ``dwconv3d``, ``mlp_block_tail``, ``ln_head``,
+    ``upsample2x``) are their plain versions, on whatever device the tensors
+    lie."""
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d_ref
+    from skoots_tpu_torch.kernels.lnhead import ln_head_ref
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail_ref
+    from skoots_tpu_torch.kernels.upsample import upsample2x_ref
+    from skoots_tpu_torch.models import unext
+
+    plain = {"dwconv3d": dwconv3d_ref, "mlp_block_tail": mlp_block_tail_ref,
+             "ln_head": ln_head_ref, "upsample2x": upsample2x_ref}
+    saved = {name: getattr(unext, name) for name in names}
+    for name in names:
+        setattr(unext, name, plain[name])
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(unext, name, fn)
+
+
+def run_wide(results: list, volume, bench_model, default_run) -> None:
+    """The 1.5x-wide UNeXT3D (``WIDE_MODEL``: the bench checkpoint's cfg
+    with ``MODEL.DIMS`` 48-96-192-96-48, random weights from ``SEED``,
+    written as a ``.skoots`` under ``build/``) through
+    ``make_chunked_pipeline`` on the 512^3 bench phantom at ``bench.py``'s
+    knobs, as :func:`run_slice` drives the bench model: launch counts exact
+    (each forward kernel a tile, propagate a CC round), every block-tail and
+    LN-head launch routed to a width-class or staged kernel (the route
+    query at each operand shape the run gave them), each kernel against its
+    plain version at those shapes; the ``1-forward`` phase cold and warm
+    beside the bench model's; one tile's prob > 0.8 decisions with the
+    card's kernels against the plain versions on the card, also with only
+    the tail and head or only the dwconv and upsample swapped, and the
+    bench model's (the share equal printed; every voxel farther than
+    ``DECISION_MARGIN`` from 0.8 alike); one f32 train step's loss and
+    gradients card vs CPU at these widths."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from skoots_tpu_torch.config import cfg_from_dict
+    from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.kernels.lnhead import ln_head_route
+    from skoots_tpu_torch.kernels.mlp import mlp_tail_route
+    from skoots_tpu_torch.models import init_model, model_from_checkpoint
+    from skoots_tpu_torch.ops import flood_fill
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    bench = load_checkpoint(os.path.join(ROOT, "runs", "bench_ckpt.skoots"))
+    cfg = cfg_from_dict(bench["cfg"])
+    cfg["MODEL"].update(WIDE_MODEL)
+    mean, std = float(bench["dataset_mean"]), float(bench["dataset_std"])
+    path = os.path.join(ROOT, "build", "wide_smoke", "wide.skoots")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_checkpoint(path, cfg, init_model(cfg, SEED, device="cpu").state_dict(),
+                    dataset_mean=mean, dataset_std=std)
+    model = model_from_checkpoint(load_checkpoint(path), device=dev)
+    run = make_chunked_pipeline(
+        model, VOLUME, crop=TILE, overlap=(0, 0, 0), assign_crop=ASSIGN_TILE,
+        vector_scale=tuple(cfg["SKOOTS"]["VECTOR_SCALING"]),
+        embed_iterations=10, embed_exit_fraction=1e-3, embed_compact_div=16,
+        cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0, device=dev)
+    print(f"wide model {WIDE_MODEL['DIMS']}: random init, {path}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    seen: dict = {}
+    with _kernel_operands(seen, cc=flood_fill):
+        inst, counts, _ = _drive("wide model: inference", lambda: run(volume, mean, std),
+                                 results)
+    cold = dict(run.last_phase_s)
+    want = {k: v * run.tile_plan["forward"] for k, v in FORWARD_KERNELS_PER_TILE.items()}
+    want["propagate"] = run.last_cc_rounds * len(prop_mod.launch_plan(192))
+    _need(counts == want, f"wide model: launches {counts}, expected {want}")
+    _need(tuple(inst.shape) == VOLUME and inst.dtype == torch.int32,
+          f"wide model: output {tuple(inst.shape)} {inst.dtype}")
+    routes = {c: mlp_tail_route(torch.bfloat16, c) for _, c, _ in seen["mlp_block_tail"]}
+    routes.update({(c, n): ln_head_route(torch.bfloat16, c, n)
+                   for _, c, n, _ in seen["ln_head"]})
+    print(f"wide model: routes {json.dumps({str(k): v for k, v in routes.items()})}",
+          flush=True)
+    _need(all(r is not None and r.startswith(("tail_class_kernel<", "tail_staged_kernel<",
+                                                "ln_head_class_kernel<"))
+              for r in routes.values()) and len(routes) == 4,
+          f"wide model: a launch left the width-class kernels ({routes})")
+    _, again, _ = _drive("wide model: warm rerun", lambda: run(volume, mean, std))
+    _need(again == want, f"wide model: rerun launches {again}, expected {want}")
+    n_instances = int((torch.unique(inst) > 0).sum())
+    print(f"wide model: 1-forward {cold['1-forward']:.3f} s cold, "
+          f"{run.last_phase_s['1-forward']:.3f} s warm (bench model "
+          f"{default_run.last_phase_s['1-forward']:.3f} s); phases "
+          f"{json.dumps(run.last_phase_s)}; {n_instances} instances, CC rounds "
+          f"{run.last_cc_rounds}", flush=True)
+    del inst
+    r = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for case in sorted(seen["mlp_block_tail"]):
+        _check_tail(results, r, *case, repeats=SHARDED_REPEATS)
+    for case in sorted(seen["ln_head"]):
+        _check_ln_head(results, r, *case, repeats=SHARDED_REPEATS)
+    torch.cuda.empty_cache()
+
+    # one tile's prob > 0.8 decisions: the card's kernels against their
+    # plain versions, all four or only some swapped, and the bench model's
+    tile = ((volume[:TILE[0], :TILE[1], :TILE[2]] - mean) / std)[None, ..., None]
+    agree = {}
+    for tag, m, plain in (
+            ("wide", model, ("dwconv3d", "mlp_block_tail", "ln_head", "upsample2x")),
+            ("wide, tail and head plain", model, ("mlp_block_tail", "ln_head")),
+            ("wide, dwconv and upsample plain", model, ("dwconv3d", "upsample2x")),
+            ("bench", bench_model, ("dwconv3d", "mlp_block_tail", "ln_head", "upsample2x"))):
+        with torch.no_grad():
+            fast = m(tile)[0, ..., 4].float()
+            with _plain_model_kernels(plain):
+                slow = m(tile)[0, ..., 4].float()
+        flips = (fast > 0.8) != (slow > 0.8)
+        agree[tag] = float(1.0 - flips.float().mean())
+        far = (slow - 0.8).abs() > DECISION_MARGIN
+        near = float(((slow - 0.8).abs() <= 2 ** -8).float().mean())
+        print(f"decisions [{tag}]: {agree[tag]:.6f} equal, max |dp| "
+              f"{float((fast - slow).abs().max()):.4g}; {near:.4f} "
+              f"of the voxels within a bf16 ulp of 0.8; flips farther than "
+              f"{DECISION_MARGIN:g} from it: {int((flips & far).sum())}", flush=True)
+        _need(not bool((flips & far).any()),
+              f"decisions [{tag}]: a voxel over {DECISION_MARGIN:g} from 0.8 decides otherwise")
+    print(f"wide model: decisions {agree['wide']:.6f} equal "
+          f"({'at or above' if agree['wide'] >= 0.999 else 'below'} 0.999)", flush=True)
+    del model, run, tile, fast, slow
+    torch.cuda.empty_cache()
+    check_grads_against_cpu(WIDE_MODEL, tag="wide 48-96-192")
+    print(f"wide model: {time.time() - t0:.1f} s in all", flush=True)
 
 
 def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
@@ -3408,6 +3580,7 @@ def main() -> int:
     ckpt, model, volume, chunked, chunked_peak, chunked_run = run_slice(results)
     check_against_cpu(ckpt, model, volume)
     torch.cuda.empty_cache()
+    run_wide(results, volume, model, chunked_run)
     vol_u8, tile_bytes = run_thrifty(results, ckpt, model, volume, chunked, chunked_peak,
                                      chunked_run)
     check_sparse_probe(results, ckpt, model, volume)

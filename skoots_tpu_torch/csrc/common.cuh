@@ -48,54 +48,22 @@ __device__ __forceinline__ float warp_fold_sum(float s) {
   return s;
 }
 
-// Row LayerNorm of one [C] row held by one warp: lane l owns elements
-// l, l + 32, ... (C / 32 of them, C % 32 == 0). Statistics in float32 as
-// the TPU kernels compute them: mu = mean(x), var = mean((x - mu)^2),
+// Row LayerNorm of one [C] row held by one warp, any C up to
+// 32 * LN_MAX_PER: lane l owns elements l, l + 32, ... below C, and the last
+// 32-column block is zero-padded, as the plain version pads its fold
+// (kernels/mlp.py::fold_sum). Statistics in float32 as the TPU kernels
+// compute them: mu = mean(x), var = mean((x - mu)^2),
 // h = (x - mu) * (1 / sqrt(var + eps)) * scale + bias, then one rounding to
-// T. Every step is an IEEE-rounded intrinsic (no contraction into FMAs) in
-// the plain version's order, so kernel and plain version agree exactly.
-template <typename T, int C>
-__device__ __forceinline__ void warp_layer_norm(const T* __restrict__ xrow,
-                                                bool valid,
-                                                const float* __restrict__ ls,
-                                                const float* __restrict__ lb,
-                                                float eps, float* hrow) {
-  constexpr int PER = C / 32;
-  const int lane = threadIdx.x & 31;
-  float v[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i)
-    v[i] = valid ? to_f32<T>(xrow[lane + 32 * i]) : 0.f;
-  float s = v[0];
-#pragma unroll
-  for (int i = 1; i < PER; ++i) s = __fadd_rn(s, v[i]);
-  const float mu = __fdiv_rn(warp_fold_sum(s), (float)C);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) v[i] = __fsub_rn(v[i], mu);
-  float q = __fmul_rn(v[0], v[0]);
-#pragma unroll
-  for (int i = 1; i < PER; ++i) q = __fadd_rn(q, __fmul_rn(v[i], v[i]));
-  const float var = __fdiv_rn(warp_fold_sum(q), (float)C);
-  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = lane + 32 * i;
-    hrow[c] = rnd<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[i], inv), ls[c]), lb[c]));
-  }
-}
-
-// warp_layer_norm at a width known only at run time, any C up to
-// 32 * LN_MAX_PER (the kernels for widths no template instantiates): lane l
-// owns elements l, l + 32, ... below C, and the last 32-column block is
-// zero-padded, as the plain version pads its fold (kernels/mlp.py::fold_sum),
-// so the two agree bit for bit at every width. Same IEEE steps as above.
+// T, stored as O; columns C ... pad_to - 1 of `hrow` get zeros. Every step
+// is an IEEE-rounded intrinsic (no contraction into FMAs) in the plain
+// version's order, so kernel and plain version agree exactly.
 constexpr int LN_MAX_PER = 8;
 
-template <typename T>
+template <typename T, typename O = float>
 __device__ __forceinline__ void warp_layer_norm_any(const T* __restrict__ xrow, bool valid,
                                                     const float* __restrict__ ls,
                                                     const float* __restrict__ lb, float eps,
-                                                    int C, float* hrow) {
+                                                    int C, O* hrow, int pad_to = 0) {
   const int lane = threadIdx.x & 31;
   const int per = (C + 31) / 32;
   float v[LN_MAX_PER];
@@ -120,7 +88,10 @@ __device__ __forceinline__ void warp_layer_norm_any(const T* __restrict__ xrow, 
 #pragma unroll
   for (int i = 0; i < LN_MAX_PER; ++i) {
     const int c = lane + 32 * i;
-    if (c < C) hrow[c] = rnd<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[i], inv), ls[c]), lb[c]));
+    if (c < C)
+      hrow[c] = from_f32<O>(rnd<T>(__fadd_rn(__fmul_rn(__fmul_rn(v[i], inv), ls[c]), lb[c])));
+    else if (c < pad_to)
+      hrow[c] = from_f32<O>(0.f);
   }
 }
 
@@ -190,4 +161,47 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A block's shared memory on the H100 (227 KB), the most a launch may ask.
+constexpr int SMEM_OPTIN = 232448;
+
+// The grid of a persistent kernel: at most the blocks of `threads` threads
+// and `smem` bytes the current card holds at once, at most `tiles`.
+// Returns a CUDA error code (0: none). The shared-memory opt-in and the
+// occupancy query cost about as much as a small launch, so each (kernel,
+// threads, smem, device) is asked once (from one host thread, as every
+// launcher here).
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, int smem, long long tiles, long long* grid) {
+  struct Known {
+    const void* fn;
+    int threads, smem, dev;
+    long long cap;
+  };
+  static Known known[256];
+  static int n_known = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  long long cap = 0;
+  for (int i = 0; i < n_known && !cap; ++i)
+    if (known[i].fn == (const void*)kernel && known[i].threads == threads &&
+        known[i].smem == smem && known[i].dev == dev)
+      cap = known[i].cap;
+  if (!cap) {
+    int sms = 0, per_sm = 0;
+    // the opt-in at its most, so launches of other sizes stay allowed
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SMEM_OPTIN)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+            cudaSuccess)
+      return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cap = (long long)sms * per_sm;
+    if (n_known < 256) known[n_known++] = {(const void*)kernel, threads, smem, dev, cap};
+  }
+  *grid = tiles < cap ? tiles : cap;
+  return 0;
 }

@@ -48,6 +48,9 @@ _SIGNATURES = {
                         _F, _P),
     # dtype, x, ls, lb, w, b, out, V, C, N, eps, stream
     "skoots_ln_head": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
+    # -> the kernel's name (null: refused); dtype, C / dtype, C, N
+    "skoots_mlp_tail_route": (_I, _I),
+    "skoots_ln_head_route": (_I, _I, _I),
     # labels_in, fg, labels_out, tiles, count, X, Y, Z, passes, connectivity,
     # stream
     "skoots_propagate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -141,8 +144,16 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_char_p if name.endswith("_route") else ctypes.c_int
     return lib
+
+
+def route(entry: str, *args: int) -> str | None:
+    """The name a ``skoots_*_route`` entry gives for ``args`` (the kernel a
+    launch with them takes), or None where it refuses them. A pure
+    function of its integers: no launch, nothing set up on any card."""
+    name = getattr(library(), entry)(*args)
+    return None if name is None else name.decode()
 
 
 def check(code: int, what: str) -> None:

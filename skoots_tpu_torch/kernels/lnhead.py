@@ -4,10 +4,12 @@ Replaces ``skoots_tpu/kernels/lnhead.py::_ln_head_call`` (body
 ``_kernel``). The Hopper kernel is ``csrc/lnhead.cu``: a memory-bound single
 pass (read C, write N values per voxel), at bf16 with the products on the
 tensor cores, at f32 on the FP32 pipe (see the source header). It takes
-every width the JAX kernel takes (:func:`ln_head_eligible`) and any N: the
-tensor-core kernel C = 16, 32, 64 and 128 with N <= 128 at bf16, the f32
-kernel C = 32, 64 and 128 with N <= 256, a kernel with run-time C and N
-everything else.
+every width the JAX kernel takes (:func:`ln_head_eligible`) and any N: at
+bf16 the tensor-core templates C = 16, 32, 64 and 128 with N <= 128, and a
+tensor-core kernel with a run-time C in four width classes and N in
+64-column chunks everything else; at f32 one kernel with a run-time C and
+N chunked to fit W in shared memory. :func:`ln_head_route` names the kernel
+a launch takes.
 
 Numerics of both versions, as at ``lnhead.py:39-49``: LN statistics in f32
 (eps 1e-6), the affine result rounded to the model dtype ``dt``, the matmul
@@ -40,6 +42,19 @@ from skoots_tpu_torch.kernels.mlp import (
 # (``skoots_tpu/kernels/lnhead.py::ln_head_eligible``) is the block tail's,
 # any N; the model runs flax's LayerNorm and 1x1 conv at every other width.
 ln_head_eligible = mlp_tail_eligible
+
+
+# the kernels a launch may take (csrc/lnhead.cu), as ln_head_route names
+# them before their template arguments
+HEAD_KERNELS = ("ln_head_tc_kernel", "ln_head_class_kernel", "ln_head_f32_kernel")
+
+
+def ln_head_route(dt: torch.dtype, c: int, n: int) -> str | None:
+    """The CUDA kernel a launch at dtype ``dt``, width ``c`` and ``n``
+    outputs takes, by name (``csrc/lnhead.cu::skoots_ln_head_route``), or
+    None where the kernels refuse the operands. Builds the library: needs
+    ``nvcc``."""
+    return _build.route("skoots_ln_head_route", _build.DTYPE_CODES[dt], c, n)
 
 
 def _dot_in_order(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,11 @@ Hopper kernel is ``csrc/mlp.cu``: the [V, 4C] hidden activation never
 reaches device memory; at bf16 both GEMMs run on the tensor cores and the
 erf-GELU epilogue on the FP32 pipe sets the pace, at f32 the GEMMs are
 scalar FP32 FMAs (see the source header). It takes every width the JAX
-kernel takes (:func:`mlp_tail_eligible`): the tensor-core kernel C = 16,
-32, 64 and 128 at bf16, the f32 kernel 32, 64 and 128, a kernel with a
-run-time C every other width.
+kernel takes (:func:`mlp_tail_eligible`), each at bf16 on the tensor cores:
+the templates at C = 16, 32, 64 and 128, a width-class kernel with a
+run-time C at every other C <= 128, and above 128 a kernel whose warps
+share row groups through a staged hidden chunk; at f32 one kernel with a
+run-time C. :func:`mlp_tail_route` names the kernel a launch takes.
 
 Rounding points of both versions, to the model dtype ``dt`` (identity at
 f32), as at ``mlp.py:78-95`` of the TPU kernel: after the LayerNorm affine
@@ -43,6 +45,18 @@ def mlp_tail_eligible(c: int) -> bool:
     return 0 < c <= 256 and c % 8 == 0
 
 
+# the kernels a launch may take (csrc/mlp.cu), as mlp_tail_route names them
+# before their template arguments
+TAIL_KERNELS = ("tail_tc_kernel", "tail_class_kernel", "tail_staged_kernel", "tail_f32_kernel")
+
+
+def mlp_tail_route(dt: torch.dtype, c: int) -> str | None:
+    """The CUDA kernel a launch at dtype ``dt`` and width ``c`` takes, by
+    name (``csrc/mlp.cu::skoots_mlp_tail_route``), or None where the
+    kernels refuse the width. Builds the library: needs ``nvcc``."""
+    return _build.route("skoots_mlp_tail_route", _build.DTYPE_CODES[dt], c)
+
+
 def _rnd(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """Round an f32 tensor to ``dt`` and back to f32."""
     return t.to(dt).float()
@@ -69,7 +83,7 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     dt: torch.dtype, eps: float = EPS) -> torch.Tensor:
     """The TPU kernels' row LayerNorm in f32, rounded to ``dt`` (as f32):
     two-pass variance, every step in the CUDA kernels' order and rounding
-    (``csrc/common.cuh::warp_layer_norm``)."""
+    (``csrc/common.cuh::warp_layer_norm_any``)."""
     xf = x.float()
     # the width as a tensor: IEEE division on every device (a Python number
     # divides on CUDA as a multiply by its reciprocal, which differs from
@@ -134,7 +148,10 @@ def _mlp_fwd(x, shortcut, ln_scale, ln_bias, w1, b1, w2, b2, gamma):
     x2, s2, w1c, w2c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
         x.contiguous().view(-1, c), shortcut.contiguous().view(-1, c),
         w1.to(dt).contiguous(), w2.to(dt).contiguous()))
-    vec = [_rnd(t.float(), dt).contiguous() for t in (ln_scale, ln_bias, b1, b2, gamma)]
+    # the five vectors rounded to dt in one buffer (three launches, not ten:
+    # at small V the wrapper's launches cost more than the kernel)
+    vec = _rnd(torch.cat([t.float() for t in (ln_scale, ln_bias, b1, b2, gamma)]), dt)
+    vec = vec.split((c, c, 4 * c, c, c))
     out = torch.empty_like(x2)
     code = _build.library().skoots_mlp_tail(
         _build.DTYPE_CODES[dt], x2.data_ptr(), s2.data_ptr(),

@@ -240,28 +240,53 @@ def test_cuda_ln_head_matches_plain_version_at_ragged_shapes(cuda_device):
     assert ln_head.launches == 2 * len(cases)
 
 
+def _tail_exact(x, sc, ls, lb, w1, b1, w2, b2, g):
+    """``mlp_block_tail_ref`` with each matmul's products summed in f64 and
+    rounded once to f32: the value every f32 summation order approximates,
+    whatever the order of the card's BLAS."""
+    from skoots_tpu_torch.kernels.mlp import _rnd, layer_norm_rows
+
+    dt = x.dtype
+    h = layer_norm_rows(x, ls, lb, dt)
+    a = _rnd((h.double() @ _rnd(w1.float(), dt).double()).float(), dt)
+    a = _rnd(a + _rnd(b1.float(), dt), dt)
+    a = _rnd(0.5 * a * (1.0 + torch.erf(a * (1.0 / np.sqrt(2.0)))), dt)
+    y = _rnd((a.double() @ _rnd(w2.float(), dt).double()).float(), dt)
+    y = _rnd(_rnd(y + _rnd(b2.float(), dt), dt) * _rnd(g.float(), dt), dt)
+    return (sc.float() + y).to(dt)
+
+
 @pytest.mark.cuda
 def test_cuda_tail_and_ln_head_at_every_width(cuda_device):
-    """Every width JAX's kernels take beyond the templates' (8, 24, 48, 96,
-    256: the run-time-width kernels) and the campaign's 16 (the tensor-core
-    templates), bf16 and f32, at a V no tile divides; the LN head also at
-    N = 200 and 256 (past the tensor-core kernel's 128); both on rows that
-    start off a 16-byte boundary. The tail at f32 within the Pallas test's
-    bound; at bf16 within 2 bf16 ulps of max(|plain|, rms(plain)): the
-    tail rounds at five points, and a sum in another order can flip the
-    rounding of y = gamma * pw2(...) and then of shortcut + y, two ulps
-    where |y| is as large as the output (gamma 0.5 here; at C = 256 one
-    value of 1,049,344 did so on the card). The LN head equal."""
+    """Every width JAX's kernels take, C = 8, 16, ..., 256, bf16 and f32,
+    at a V no tile divides, on rows that start off a 16-byte boundary; the
+    LN head at N = C and also at N = 200, 256, 5 and 130 (64-column chunks,
+    a partial n8 tile) for a spread of widths. The route query names one of
+    the package's kernels for every launch (the templates at C = 16, 32,
+    64, 128; the width classes and the staged tail elsewhere; the f32
+    kernels).
+    The tail at f32 within the Pallas test's bound; at bf16 within 2 bf16
+    ulps of max(|plain|, rms(plain)): the tail rounds at five points, and a
+    sum in another order can flip the rounding of y = gamma * pw2(...) and
+    then of shortcut + y, two ulps where |y| is as large as the output
+    (gamma 0.5 here). A failure reports both versions' distance from the
+    plain version with its sums taken in f64 and rounded once
+    (``_tail_exact``), the value every f32 order approximates. The LN head
+    equal."""
+    from skoots_tpu_torch.kernels.lnhead import HEAD_KERNELS, ln_head_route
+    from skoots_tpu_torch.kernels.mlp import TAIL_KERNELS, mlp_tail_route
+
     rng = np.random.default_rng(8)
     mlp_block_tail.launches = ln_head.launches = 0
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
-    widths = (8, 16, 24, 48, 96, 256)
+    widths = range(8, 257, 8)
     for c in widths:
         v = 4099
         args = [f(v, c), f(v, c) * 0.1, f(c) * 0.1 + 1.0, f(c) * 0.1,
                 f(c, 4 * c) / c ** 0.5, f(4 * c) * 0.1, f(4 * c, c) / (2 * c ** 0.5),
                 f(c) * 0.1, torch.full((c,), 0.5)]
         for dt in (torch.bfloat16, torch.float32):
+            assert mlp_tail_route(dt, c).startswith(TAIL_KERNELS), (c, dt)
             a = [t.to(cuda_device) for t in args]
             for i in (0, 1, 4, 6):
                 a[i] = a[i].to(dt)
@@ -271,13 +296,17 @@ def test_cuda_tail_and_ln_head_at_every_width(cuda_device):
             got, ref = mlp_block_tail(*a), mlp_block_tail_ref(*a)
             assert got.dtype == dt and got.shape == ref.shape
             if dt == torch.bfloat16:
-                assert _bf16_ulps(got, ref) <= 2.0, (c, _bf16_ulps(got, ref))
+                assert _bf16_ulps(got, ref) <= 2.0, (
+                    c, _bf16_ulps(got, ref), "from the exact sums: kernel",
+                    _bf16_ulps(got, _tail_exact(*a)), "plain", _bf16_ulps(ref, _tail_exact(*a)))
             else:
                 torch.testing.assert_close(got, ref, atol=4e-3, rtol=1e-3)
-    head_cases = [(c, c) for c in widths] + [(48, 200), (16, 256), (32, 256)]
+    head_cases = [(c, c) for c in widths] + [
+        (c, n) for c in (8, 16, 24, 32, 48, 96, 192, 256) for n in (200, 256, 5, 130)]
     for c, n in head_cases:
         args = [f(4099, c), f(c) * 0.1 + 1.0, f(c) * 0.1, f(c, n) / c ** 0.5, f(n) * 0.1]
         for dt in (torch.bfloat16, torch.float32):
+            assert ln_head_route(dt, c, n).startswith(HEAD_KERNELS), (c, n, dt)
             a = [t.to(cuda_device) for t in args]
             # x three elements into its buffer: rows off a 16-byte boundary
             x = torch.empty(4099 * c + 3, dtype=dt, device=cuda_device)[3:].view(4099, c)
@@ -288,6 +317,8 @@ def test_cuda_tail_and_ln_head_at_every_width(cuda_device):
     torch.cuda.synchronize()
     assert mlp_block_tail.launches == 2 * len(widths)
     assert ln_head.launches == 2 * len(head_cases)
+    assert mlp_tail_route(torch.bfloat16, 12) is None
+    assert ln_head_route(torch.bfloat16, 264, 8) is None
 
 
 @pytest.mark.cuda

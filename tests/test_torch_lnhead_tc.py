@@ -9,7 +9,7 @@ The emulation follows the kernel:
   tile is padded with zero rows (cp.async's zero fill), which are
   normalised and multiplied like the others and never stored;
 - the LayerNorm is the plain version's, bit for bit (``layer_norm_row``: a
-  lane a row, ``warp_layer_norm``'s fold tree in one thread), rounded to
+  lane a row, ``warp_layer_norm_any``'s fold tree in one thread), rounded to
   bf16, with the LN scale and bias rounded to bf16 first;
 - W is padded with zero columns to whole n16 groups of the ``8 NT``
   columns (``NT`` the n8 tiles: 1, 2, 4, 8 or 16);

@@ -56,7 +56,8 @@ EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample"
             "skoots_tpu_torch.train.checkpoint", "skoots_tpu_torch.train.losses",
             "skoots_tpu_torch.models.spatial_embedding", "skoots_tpu_torch.infer.autoknobs",
             "skoots_tpu_torch.config", "skoots_tpu_torch.tools.bigvol_proof",
-            "skoots_tpu_torch.tools.seam_bench_agreement"}
+            "skoots_tpu_torch.tools.seam_bench_agreement",
+            "skoots_tpu_torch.tools.bench_tail_head"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():

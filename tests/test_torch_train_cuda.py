@@ -128,7 +128,7 @@ def test_cuda_wgrad_at_every_odd_k(cuda_device, k):
 def test_cuda_every_width_trains(cuda_device, dims, k):
     """A train-mode forward and backward at the accuracy campaign's widths
     (the tensor-core kernels at C = 16), at 24-48 with k = 9 (the
-    run-time-width and run-time-k kernels) and at 12 (flax's composition
+    width-class and run-time-k kernels) and at 12 (flax's composition
     where no kernel takes the width): every gradient finite; the block tail
     launched once a block whose width it takes, the LN head only where its
     width rule holds."""
