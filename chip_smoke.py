@@ -9,9 +9,10 @@ them. In order:
 2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and counts the tensor-core
    instructions (HMMA / HGMMA) of every instantiation of the bf16 block
-   tail, depthwise conv, stem, LN head and the depthwise conv's and stem's
-   weight gradients in the library's SASS (``cuobjdump -sass``; none
-   fails);
+   tail, depthwise conv, stem GEMMs (the 32-channel templates and the
+   chunked kernels of every other width and k), LN head and the depthwise
+   conv's and stems' weight gradients in the library's SASS (``cuobjdump
+   -sass``; none fails);
 3. compares every kernel with its plain PyTorch version on the card, at the
    shapes the main paths give it, on seeded random inputs (propagate also
    on the main path's sparse mask: one 192-pass CC round on the 512^3
@@ -20,7 +21,10 @@ them. In order:
    function, that call, with CUDA events (median of several runs); the
    depthwise conv, the block tail and the LN head also at the host
    engine's and the training path's shapes, ragged shapes, k = 3 and f32,
-   the block tail and the LN head beside their plain cuBLAS compositions;
+   the stems at every width and k their GEMMs take (``STEM_DWCONV_CASES``,
+   ``STEM_WGRAD_CASES``: k = 9 to 15, 1 -> 8 to 256, the wide model's
+   1 -> 48 tiles; each stem check asserts its route), the block tail and
+   the LN head beside their plain cuBLAS compositions;
    checks the depthwise conv's bf16
    input gradient against its plain composition, and that the block
    tail's and LN head's autograd backward is exactly the autograd of their
@@ -188,7 +192,13 @@ them. In order:
     those widths; the kernel
     checks of 3 also at its shapes (``WIDE_TAIL_CASES``,
     ``WIDE_LN_HEAD_CASES``), and every tail and LN-head check asserts its
-    route;
+    route; the stem, the depthwise convs and the upsamples against their
+    plain versions at the run's operand shapes; one bf16 training step of
+    the wide model at the bench training cfg (median of 5, launches exact);
+    the stems' launches on the bench, wide and campaign paths (inference
+    and training) each on the GEMM the path's width takes (``_stem_routes``
+    at the library's entry points; over the whole run, every bf16 stem the
+    GEMMs take on one);
 22. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
@@ -327,6 +337,32 @@ CAMPAIGN_WGRAD_CASES = (
     ((1, 48, 48, 16), 32, 32, 7, "bf16"), ((1, 24, 24, 8), 64, 64, 7, "bf16"),
     ((1, 96, 96, 32), 16, 16, 9, "bf16"), ((1, 96, 96, 32), 1, 16, 9, "bf16"),
     ((1, 48, 48, 16), 32, 32, 11, "bf16"), ((2, 24, 20, 12), 32, 32, 9, "f32"))
+# the stems' GEMMs at every width and k (csrc/dwconv.cu::stem_gemm_chunk_kernel,
+# csrc/dwconv_wgrad.cu::stem_wgrad_chunk_kernel; the 1 -> 16 k = 9 stem is a
+# campaign case above): k = 9 and 11 at 1 -> 16 and 1 -> 48 on the training
+# crop, 256 channels on a ragged batch, k = 13 and 15 narrow, then the wide
+# model's stem (1 -> 48) at its two inference tiles and its training crop
+# (forward), and at its training crop (weight gradient); drawn on the card
+# from a generator of their own. ([B, X, Y, Z], Cin, C, k, dtype)
+STEM_DWCONV_CASES = (
+    ((1, 96, 96, 32), 1, 16, 11, "bf16"), ((1, 96, 96, 32), 1, 48, 9, "bf16"),
+    ((1, 96, 96, 32), 1, 48, 11, "bf16"), ((2, 37, 41, 29), 1, 256, 7, "bf16"),
+    ((2, 37, 41, 29), 1, 256, 11, "bf16"), ((1, 40, 36, 20), 1, 24, 13, "bf16"),
+    ((1, 40, 36, 20), 1, 8, 15, "bf16"), ((1, 256, 256, 96), 1, 48, 7, "bf16"),
+    ((1, 256, 256, 64), 1, 48, 7, "bf16"), ((1, 96, 96, 32), 1, 48, 7, "bf16"))
+STEM_WGRAD_CASES = (
+    ((1, 96, 96, 32), 1, 16, 11, "bf16"), ((1, 96, 96, 32), 1, 48, 9, "bf16"),
+    ((1, 96, 96, 32), 1, 48, 11, "bf16"), ((2, 37, 41, 29), 1, 256, 7, "bf16"),
+    ((2, 37, 41, 29), 1, 256, 11, "bf16"), ((1, 40, 36, 20), 1, 24, 13, "bf16"),
+    ((1, 40, 36, 20), 1, 8, 15, "bf16"), ((1, 96, 96, 32), 1, 48, 7, "bf16"))
+# the routes each path's stem launches take: the bench model (1 -> 32, the
+# 32-channel templates), the campaign model (1 -> 16) and the wide model
+# (1 -> 48), k = 7
+BENCH_STEM_ROUTES = {"forward": "stem_gemm_kernel<7>", "wgrad": "stem_wgrad_tc_kernel<7>"}
+CAMPAIGN_STEM_ROUTES = {"forward": "stem_gemm_chunk_kernel<7,2>",
+                        "wgrad": "stem_wgrad_chunk_kernel<2,1>"}
+WIDE_STEM_ROUTES = {"forward": "stem_gemm_chunk_kernel<7,6>",
+                    "wgrad": "stem_wgrad_chunk_kernel<6,1>"}
 # the 1.5x-wide UNeXT3D of run_wide (the bench checkpoint's cfg otherwise,
 # random weights from SEED): every block tail runs at C = 48, 96 or 192 and
 # the LN head at 48 -> 48, off the tensor-core templates' widths
@@ -357,9 +393,9 @@ FORWARD_KERNELS_PER_TILE = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1,
                             "upsample2x": 2}
 # the hand-written kernels that must run on the tensor cores (bf16)
 TENSOR_CORE_KERNELS = ("tail_tc_kernel", "tail_class_kernel", "tail_staged_kernel",
-                       "dwconv3d_tc_kernel", "stem_gemm_kernel", "ln_head_tc_kernel",
-                       "ln_head_class_kernel", "dwconv3d_wgrad_tc_kernel",
-                       "stem_wgrad_tc_kernel")
+                       "dwconv3d_tc_kernel", "stem_gemm_kernel", "stem_gemm_chunk_kernel",
+                       "ln_head_tc_kernel", "ln_head_class_kernel", "dwconv3d_wgrad_tc_kernel",
+                       "stem_wgrad_tc_kernel", "stem_wgrad_chunk_kernel")
 
 
 def _need(cond: bool, what: str) -> None:
@@ -431,8 +467,8 @@ def tensor_core_sass(lib_path) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(%s)I((?:Li\d+E)+)E" % "|".join(TENSOR_CORE_KERNELS), line)
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            m = re.search(r"(%s)I((?:L[ib]\d+E)+)E" % "|".join(TENSOR_CORE_KERNELS), line)
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
             name = f"{m.group(1)}<{args}>" if m else None
             if name:
                 counts[name] = 0
@@ -481,14 +517,19 @@ def _check_dwconv(results, r, shape, cin, c, k, dtn, repeats=REPEATS) -> None:
     of the same products in another order). Least work: bf16 taps on the
     tensor cores (each product of two bf16 values is exact in f32), f32
     taps on the FP32 pipe. Library call: cuDNN's conv3d on the
-    channels-last view (grouped per channel; the stem a dense 1 -> C)."""
+    channels-last view (grouped per channel; the stem a dense 1 -> C). A
+    bf16 stem the GEMMs take must route to one (the route query)."""
     import torch
     import torch.nn.functional as F
 
-    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref, dwconv3d_route
 
     bf = torch.bfloat16
     dt = bf if dtn == "bf16" else torch.float32
+    route = dwconv3d_route(dt, 1 if cin == c else 0, c, k)
+    if _gemm_stem(dt, cin, c, k):
+        _need(route.startswith(("stem_gemm_kernel<", "stem_gemm_chunk_kernel<")),
+              f"dwconv3d: the stem 1 -> {c} k={k} routes to {route}")
     x = _randn(r, (*shape, cin), dtype=dt)
     w = _randn(r, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
     b = _randn(r, (c,), 0.1).to(dt).float()
@@ -509,11 +550,55 @@ def _check_dwconv(results, r, shape, cin, c, k, dtn, repeats=REPEATS) -> None:
     groups = 1 if cin == 1 else c
     _record(results, "dwconv3d", "skoots_tpu_torch/csrc/dwconv.cu",
             "skoots_tpu/kernels/dwconv.py:334", err, err_abs, tol,
-            f"{unit} at {tuple(x.shape)}->{c} k={k} {dtn}",
+            f"{unit} at {tuple(x.shape)}->{c} k={k} {dtn} [{route}]",
             _time_ms(lambda: dwconv3d(x, w, b), repeats),
             _time_ms(lambda: dwconv3d_ref(x, w, b), repeats),
             bound(nbytes(x, w, b, got), **ops),
             _time_ms(lambda: F.conv3d(xv, wl, bl, padding=k // 2, groups=groups), repeats))
+
+
+def _gemm_stem(dt, cin: int, c: int, k: int) -> bool:
+    """Whether the stems' tensor-core GEMMs take this dense 1 -> ``c`` conv
+    (bf16, C % 8 == 0, 8 <= C <= 256, k <= 15)."""
+    import torch
+
+    return dt == torch.bfloat16 and cin == 1 and c % 8 == 0 and 8 <= c <= 256 and k <= 15
+
+
+def _check_wgrad(results, r, shape, cin, c, k, dtn, what, repeats=REPEATS) -> None:
+    """The weight gradient at ``shape`` ([B, X, Y, Z]), ``cin`` -> ``c``, ``k``,
+    ``dtn`` on inputs from ``r`` (the cotangent at 1e-3): within 1e-3 *
+    max|plain| (f32 sums of the same exact products in another order), the
+    same from run to run (fixed-order sums), a bf16 stem the GEMMs take on
+    one (the route query); library call cuDNN's ``conv3d_weight``."""
+    import torch
+
+    from skoots_tpu_torch.kernels.dwconv import (dwconv3d_wgrad, dwconv3d_wgrad_ref,
+                                                 dwconv3d_wgrad_route)
+
+    dt = torch.bfloat16 if dtn == "bf16" else torch.float32
+    route = dwconv3d_wgrad_route(dt, 1 if cin == c else 0, c, k)
+    if _gemm_stem(dt, cin, c, k):
+        _need(route.startswith(("stem_wgrad_tc_kernel<", "stem_wgrad_chunk_kernel<")),
+              f"dwconv3d_wgrad: the stem 1 -> {c} k={k} routes to {route}")
+    x = _randn(r, (*shape, cin), dtype=dt)
+    g = _randn(r, (*shape, c), 1e-3, dtype=dt)
+    got = dwconv3d_wgrad(x, g, k)
+    ref = dwconv3d_wgrad_ref(x, g, k)
+    torch.cuda.synchronize()
+    _need(torch.equal(got, dwconv3d_wgrad(x, g, k)),
+          f"dwconv3d_wgrad {shape} k={k}: differs run to run")
+    err_abs = float((got - ref).abs().max())
+    xv, gv = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        library = _time_ms(lambda: torch.nn.grad.conv3d_weight(
+            xv, (c, 1, k, k, k), gv, padding=k // 2, groups=1 if cin == 1 else c), repeats)
+    _record(results, "dwconv3d_wgrad", "skoots_tpu_torch/csrc/dwconv_wgrad.cu",
+            "skoots_tpu/kernels/dwconv.py:782", err_abs / float(ref.abs().max()),
+            err_abs, 1e-3, f"of max|plain| at {what} {shape} {cin}->{c} k={k} {dtn} [{route}]",
+            _time_ms(lambda: dwconv3d_wgrad(x, g, k), repeats),
+            _time_ms(lambda: dwconv3d_wgrad_ref(x, g, k), repeats),
+            wgrad_bound(x, g, got), library)
 
 
 def _check_tail(results, r, v, c, dtn, repeats=REPEATS) -> None:
@@ -657,6 +742,11 @@ def check_kernels() -> list:
     #    _check_ln_head say each one's bound, least work and library call)
     for i, case in enumerate(DWCONV_CASES + CAMPAIGN_DWCONV_CASES):
         _check_dwconv(results, rng if i < len(DWCONV_CASES) else extra, *case)
+    # the stems' GEMMs at every width and k, from a generator on the card
+    stems = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    for case in STEM_DWCONV_CASES:
+        _check_dwconv(results, stems, *case)
+    torch.cuda.empty_cache()
     for i, case in enumerate(TAIL_CASES + CAMPAIGN_TAIL_CASES):
         _check_tail(results, rng if i < len(TAIL_CASES) else extra, *case)
     for i, case in enumerate(LN_HEAD_CASES + CAMPAIGN_LN_HEAD_CASES):
@@ -870,6 +960,57 @@ def _drive(tag: str, fn, results: list | None = None, kernels: dict | None = Non
         r["launches"] += counts.get(r["name"], 0)
     print(f"{tag}: {dt:.3f} s, launches {json.dumps(counts)}", flush=True)
     return out, counts, dt
+
+
+@contextlib.contextmanager
+def _stem_routes(tag: str, expect: dict | None = None):
+    """While open, record the (dtype, C, k) of every stem launch (one input
+    channel read for all C) at the library's entry points
+    ``skoots_dwconv3d`` and ``skoots_dwconv3d_wgrad``, and on closing print
+    the route of each (the route queries, on the same integers). With
+    ``expect`` ({"forward": name, "wgrad": name}), every launch of each kind
+    must take that kernel and each kind must have launched; without it,
+    every bf16 stem the GEMMs take must have taken one."""
+    import torch
+
+    from skoots_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    entries = {"forward": "skoots_dwconv3d", "wgrad": "skoots_dwconv3d_wgrad"}
+    seen = {kind: set() for kind in entries}
+    saved = {kind: getattr(lib, entry) for kind, entry in entries.items()}
+
+    def recorder(kind):
+        def launch(*args):  # dtype, ..., C (9), k (10), x_vstride, x_cstride (12), ...
+            if args[12] == 0:
+                seen[kind].add((args[0], args[9], args[10]))
+            return saved[kind](*args)
+        return launch
+
+    for kind, entry in entries.items():
+        setattr(lib, entry, recorder(kind))
+    try:
+        yield seen
+    finally:
+        for kind, entry in entries.items():
+            setattr(lib, entry, saved[kind])
+    routes = {kind: {key: _build.route(entries[kind] + "_route", key[0], 0, key[1], key[2])
+                     for key in launched} for kind, launched in seen.items()}
+    names = {0: "f32", 1: "bf16"}
+    print(f"{tag}: stem launches' routes " + json.dumps(
+        {kind: {f"{names[d]} 1->{c} k={k}": r for (d, c, k), r in v.items()}
+         for kind, v in routes.items()}), flush=True)
+    for kind, v in routes.items():
+        if expect is not None and kind in expect:
+            _need(set(v.values()) == {expect[kind]},
+                  f"{tag}: stem {kind} launches routed to {sorted(v.values())}, expected "
+                  f"{expect[kind]}")
+        for (d, c, k), r in v.items():
+            dt = torch.bfloat16 if d == 1 else torch.float32
+            _need(not _gemm_stem(dt, 1, c, k) or r.startswith(
+                ("stem_gemm_kernel<", "stem_gemm_chunk_kernel<", "stem_wgrad_tc_kernel<",
+                 "stem_wgrad_chunk_kernel<")),
+                f"{tag}: a bf16 stem 1 -> {c} k={k} {kind} launch took {r}")
 
 
 def run_host_engine(results: list):
@@ -1201,7 +1342,8 @@ def run_slice(results: list):
     torch.cuda.empty_cache()
     base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    inst, counts, e2e = _drive("inference", lambda: run(volume, mean, std), results)
+    with _stem_routes("inference", {"forward": BENCH_STEM_ROUTES["forward"]}):
+        inst, counts, e2e = _drive("inference", lambda: run(volume, mean, std), results)
     # the run's own peaks, over the phantom and the model it was given:
     # allocated, and reserved (what the card must have free)
     peak = torch.cuda.max_memory_allocated() - base
@@ -1343,7 +1485,8 @@ def run_wide(results: list, volume, bench_model, default_run) -> None:
           f"{time.time() - t0:.1f} s", flush=True)
 
     seen: dict = {}
-    with _kernel_operands(seen, cc=flood_fill):
+    with _kernel_operands(seen, cc=flood_fill), _stem_routes(
+            "wide model: inference", {"forward": WIDE_STEM_ROUTES["forward"]}):
         inst, counts, _ = _drive("wide model: inference", lambda: run(volume, mean, std),
                                  results)
     cold = dict(run.last_phase_s)
@@ -1376,6 +1519,15 @@ def run_wide(results: list, volume, bench_model, default_run) -> None:
     for case in sorted(seen["ln_head"]):
         _check_ln_head(results, r, *case, repeats=SHARDED_REPEATS)
     torch.cuda.empty_cache()
+    # the stem, the depthwise convs and the upsamples at the run's shapes,
+    # from a generator of their own
+    r = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for case in sorted(seen["dwconv3d"]):
+        _check_dwconv(results, r, *case, repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+    for shape, dt in sorted(seen["upsample2x"], key=lambda case: case[0]):
+        _check_upsample(results, r, shape, dt, repeats=SHARDED_REPEATS)
+    torch.cuda.empty_cache()
 
     # one tile's prob > 0.8 decisions: the card's kernels against their
     # plain versions, all four or only some swapped, and the bench model's
@@ -1405,7 +1557,89 @@ def run_wide(results: list, volume, bench_model, default_run) -> None:
     del model, run, tile, fast, slow
     torch.cuda.empty_cache()
     check_grads_against_cpu(WIDE_MODEL, tag="wide 48-96-192")
+    run_wide_train_step(results)
     print(f"wide model: {time.time() - t0:.1f} s in all", flush=True)
+
+
+def run_wide_train_step(results: list) -> None:
+    """One bf16 training step of the wide model (``WIDE_MODEL``, random
+    weights from ``SEED``) at the bench checkpoint's training cfg (crop
+    96x96x32, batch 1) on a seeded tube crop: the median of 5 CUDA-event
+    runs of the step (forward and loss, backward, optimizer update) after a
+    warm one, each kernel's launches counted over the 5 (exact: 21 dwconv
+    (11 forward, 10 input gradients), 11 weight gradients, 10 block tails,
+    1 LN head, 2 upsamples a step), the stem's forward and weight gradient
+    on their GEMMs (the route of every launch)."""
+    import torch
+
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad
+    from skoots_tpu_torch.kernels.lnhead import ln_head
+    from skoots_tpu_torch.kernels.mlp import mlp_block_tail
+    from skoots_tpu_torch.kernels.upsample import upsample2x
+    from skoots_tpu_torch.models import init_model
+    from skoots_tpu_torch.ops.skeleton import bake_skeleton, pack_skeletons, skeleton_to_mask
+    from skoots_tpu_torch.train.engine import cfg_optimizer, make_train_step
+    from skoots_tpu_torch.train.sigma import init_sigma
+    from skoots_tpu_torch.utils.synthetic import make_tubes
+
+    dev = torch.device("cuda")
+    cfg = _bench_train_cfg()
+    cfg["MODEL"].update(WIDE_MODEL)
+    _need(cfg["MODEL"]["DTYPE"] == "bfloat16" and cfg["TRAIN"]["TRAIN_BATCH_SIZE"] == 1,
+          f"wide train step: cfg {cfg['MODEL']['DTYPE']}, batch "
+          f"{cfg['TRAIN']['TRAIN_BATCH_SIZE']}")
+    img, labels, skels = make_tubes(shape=TRAIN_CROP, n_tubes=4, radius=5, seed=5)
+    packed = pack_skeletons(skels)
+    batch = {
+        "image": torch.from_numpy((img.astype(np.float32) - 41.8) / 20.4)[None, ..., None],
+        "masks": torch.from_numpy((labels > 0).astype(np.float32))[None, ..., None],
+        "baked": bake_skeleton(torch.from_numpy(labels), packed,
+                               tuple(cfg["AUGMENTATION"]["BAKE_SKELETON_ANISOTROPY"]))[None],
+        "skele_masks": skeleton_to_mask(packed, TRAIN_CROP, 3, 3)[None, ..., None],
+    }
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    model = init_model(cfg, SEED, device=dev).train()
+    opt, sched = cfg_optimizer(cfg, model.parameters())
+    step = make_train_step(model, opt, sched, init_sigma(cfg), cfg)
+
+    def one():
+        opt.zero_grad(set_to_none=True)
+        total, _ = step.loss_fn(batch, 0)
+        total.backward()
+        step.apply_update(0)
+        return float(total.detach())
+
+    one()
+    torch.cuda.synchronize()
+
+    def five():
+        times, losses = [], []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(one())
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return times, losses
+
+    kernels = {"dwconv3d": dwconv3d, "dwconv3d_wgrad": dwconv3d_wgrad,
+               "mlp_block_tail": mlp_block_tail, "ln_head": ln_head, "upsample2x": upsample2x}
+    with _stem_routes("wide model: bf16 train step", WIDE_STEM_ROUTES):
+        (times, losses), counts, _ = _drive("wide model: bf16 train step x5", five, results,
+                                            kernels)
+    per_step = {"dwconv3d": 21, "dwconv3d_wgrad": 11, "mlp_block_tail": 10, "ln_head": 1,
+                "upsample2x": 2}
+    print(f"wide model: bf16 train step (crop {TRAIN_CROP}, batch 1) median of 5 "
+          f"{float(np.median(times)):.3f} ms (runs {[round(t, 3) for t in times]}); losses "
+          f"{[round(v, 6) for v in losses]}", flush=True)
+    _need(all(np.isfinite(losses)), f"wide train step: losses {losses}")
+    for name, c in counts.items():
+        _need(c == 5 * per_step[name],
+              f"wide train step: {name} {c} launches, expected {5 * per_step[name]}")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
 
 
 def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
@@ -1871,32 +2105,17 @@ def check_train_kernels(results: list) -> None:
                 wgrad_bound(x, g, got), library)
         del x, g, got, ref, xv, gv
 
-    # 1b. the same at the campaign's training levels (its stem 1 -> 16 runs
-    #     the FP32 kernel: the stem's tensor-core GEMM is for 32 channels)
-    #     and at k = 9 and 11 (the run-time-k kernel), from a generator of
-    #     their own
+    # 1b. the same at the campaign's training levels (its stem 1 -> 16: the
+    #     stem GEMM with 16 channels) and at k = 9 and 11, from a generator
+    #     of their own; then the stems' GEMMs at every width and k
+    #     (STEM_WGRAD_CASES), from one on the card
     campaign = np.random.default_rng(SEED + 4)
-    for shape, cin, c, k, dtn in CAMPAIGN_WGRAD_CASES:
-        dt = bf if dtn == "bf16" else torch.float32
-        x = _randn(campaign, (*shape, cin), dtype=dt)
-        g = _randn(campaign, (*shape, c), 1e-3, dtype=dt)
-        got = dwconv3d_wgrad(x, g, k)
-        ref = dwconv3d_wgrad_ref(x, g, k)
-        torch.cuda.synchronize()
-        _need(torch.equal(got, dwconv3d_wgrad(x, g, k)),
-              f"dwconv3d_wgrad {shape} k={k}: differs run to run")
-        err_abs = float((got - ref).abs().max())
-        xv, gv = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            library = _time_ms(lambda: torch.nn.grad.conv3d_weight(
-                xv, (c, 1, k, k, k), gv, padding=k // 2, groups=1 if cin == 1 else c))
-        _record(results, "dwconv3d_wgrad", "skoots_tpu_torch/csrc/dwconv_wgrad.cu",
-                "skoots_tpu/kernels/dwconv.py:782", err_abs / float(ref.abs().max()),
-                err_abs, 1e-3, f"of max|plain| at campaign {shape} {cin}->{c} k={k} {dtn}",
-                _time_ms(lambda: dwconv3d_wgrad(x, g, k)),
-                _time_ms(lambda: dwconv3d_wgrad_ref(x, g, k)),
-                wgrad_bound(x, g, got), library)
-        del x, g, got, ref, xv, gv
+    for case in CAMPAIGN_WGRAD_CASES:
+        _check_wgrad(results, campaign, *case, "campaign")
+    stems = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for case in STEM_WGRAD_CASES:
+        _check_wgrad(results, stems, *case, "stem")
+    torch.cuda.empty_cache()
 
     # 2. skeleton bake over one crop, anisotropy (1, 1, 3), exact: 8 box
     #    instances with P = 256 and 4,096 points inside them; the sparse
@@ -2134,9 +2353,10 @@ def run_train_slice(results: list) -> list:
         for host_batch in host_pf(epoch):
             yield augment(host_batch, g)
 
-    state, counts, wall = _drive("train()", lambda: train(
-        cfg, data_iter, dev, dataset_mean=mean, dataset_std=std, object_radius=radius),
-        results, kernels)
+    with _stem_routes("train()", BENCH_STEM_ROUTES):
+        state, counts, wall = _drive("train()", lambda: train(
+            cfg, data_iter, dev, dataset_mean=mean, dataset_std=std, object_radius=radius),
+            results, kernels)
     n = state.step
     # per step: 11 depthwise convs forward (stem + 10 blocks) and 10 input
     # gradients (not the stem's), 11 weight gradients, 10 block tails,
@@ -3100,8 +3320,9 @@ def run_campaign(results: list) -> None:
     epochs, steps_per_epoch = 150, 10
     kernels = {**_launch_counters(), "dwconv3d_wgrad": dwconv3d_wgrad,
                "bake_skeleton": bake_skeleton_kernel}
-    result, counts, wall = _drive("campaign [separated]", lambda: ac.run_scenario(
-        "separated", outdir, epochs, steps_per_epoch, device="cuda"), results, kernels)
+    with _stem_routes("campaign [separated]", CAMPAIGN_STEM_ROUTES):
+        result, counts, wall = _drive("campaign [separated]", lambda: ac.run_scenario(
+            "separated", outdir, epochs, steps_per_epoch, device="cuda"), results, kernels)
     stats = engine.last_stats
     bsz = load_cfg_from_file(os.path.join(outdir, "separated", "cfg.yaml"))["TRAIN"][
         "TRAIN_BATCH_SIZE"]
@@ -3570,6 +3791,21 @@ def main() -> int:
           f"{json.dumps(tensor_core_sass(_build.library_path()))}", flush=True)
 
     check_yaml_reader()
+    with _stem_routes("the whole run"):
+        results = run_all()
+    for r in results:
+        r.pop("_largest")
+    print(json.dumps({"kernels": results}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_all() -> list:
+    """Every phase after the build, in order; returns the kernels' results."""
+    import torch
+
     results = check_kernels()
     check_microbenchmarks(results)
     check_train_kernels(results)
@@ -3603,13 +3839,7 @@ def main() -> int:
     run_sparse_inference(results, sparse_ckpt, host_phantom)
     run_perslice_slice(results, host_phantom, n_default)
     run_campaign(results)
-    for r in results:
-        r.pop("_largest")
-    print(json.dumps({"kernels": results}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return results
 
 
 if __name__ == "__main__":

@@ -163,6 +163,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The stems' GEMMs (csrc/dwconv.cu, csrc/dwconv_wgrad.cu) hold a chunk of
+// `units` 8-channel groups as a compile-time class of 2, 4, 6 or 8 n8 tiles;
+// a row of the class's columns is padded by 8 to an odd number of 16-byte
+// units (conflict-free ldmatrix rows).
+inline int stem_nt_class(int units) { return units <= 2 ? 2 : (units + 1) / 2 * 2; }
+inline int stem_row_stride(int nt) { return 8 * nt + 8; }
+
 // A block's shared memory on the H100 (227 KB), the most a launch may ask.
 constexpr int SMEM_OPTIN = 232448;
 

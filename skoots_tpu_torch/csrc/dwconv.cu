@@ -35,16 +35,20 @@
 // window start, the masks on ragged X, Y, Z) in torch and holds it against
 // the plain version.
 //
-// The stem at 32 channels (`stem_gemm_kernel`): an implicit GEMM, M = 16
-// output z, N = the 32 channels, K = the k^2 (dx, dy) groups of 8 dz lanes,
-// half the products of the banded form, which the card ran slower for the
-// stem (PERF.md); its indexing is stated in the same test file.
+// The stem at 32 channels and k = 3, 5, 7 (`stem_gemm_kernel`): an
+// implicit GEMM, M = 16 output z, N = the 32 channels, K = the k^2 (dx, dy)
+// groups of 8 dz lanes, half the products of the banded form, which the
+// card ran slower for the stem (PERF.md); its indexing is stated in the same
+// test file. Every other bf16 stem with C % 8 == 0, 8 <= C <= 256 and odd
+// k <= 15 (`stem_gemm_chunk_kernel`): the same GEMM with N in chunks of at
+// most 64 channels and 16 dz lanes a group at k >= 9 (below;
+// tests/test_torch_stem_gemm.py states it). `route` below is the one
+// choice of kernel, shared with the route query `skoots_dwconv3d_route`.
 //
-// k other than 3, 5 and 7 (any odd k, `dwconv3d_any_kernel`): a thread an
-// output value, below.
+// Any other odd k (`dwconv3d_any_kernel`): a thread an output value, below.
 //
-// f32, bf16 with C % 8 != 0 and stems of other than 32 channels
-// (`dwconv3d_kernel`): FP32 FMAs. A block
+// f32 and bf16 with C % 8 != 0 at k = 3, 5, 7 (`dwconv3d_kernel`): FP32
+// FMAs. A block
 // stages a (TX+k-1) x (TY+k-1) x (TZ+k-1) halo tile of CC channels in
 // shared memory, each thread owns one (x, y, channel) column of TZ outputs
 // and reuses each loaded input for the k dz taps. The tensor cores would
@@ -480,6 +484,278 @@ int launch_stem_gemm(const void* x, const float* w, const float* b, void* out, i
   return (int)cudaGetLastError();
 }
 
+// ---- every other bf16 stem (C % 8 == 0, 8 <= C <= 256, odd k <= 15) -------
+//
+// The implicit GEMM of stem_gemm_kernel with N and k free. M = 16 output z
+// of one (x, y); a warp holds MT of them (8 warps; at k <= 7 MT = 2 y rows,
+// since there the weight panel's shared-memory reads bound the product and
+// each B fragment then feeds two; 1 at k >= 9). N = a chunk of at most 64
+// channels as NT = 2, 4, 6 or 8 n8 tiles, a compile-time count, so the
+// k-step loop is straight-line code (a chunk narrower than its class has
+// zero weight columns, computed and not stored); the grid's blocks split
+// among the chunks, a block holding one chunk's weight panel and walking
+// tiles of a persistent grid. K = the k^2 (dx, dy) groups of G dz lanes:
+// G = 8 for k <= 7 (two groups a k-step), G = 16 for k >= 9 (one). The
+// panel holds only w's k^3 taps, one row a (dx, dy, dz), and one zero row:
+// a lane whose dz >= k (or whose group is the padding past k^2) gives
+// ldmatrix the zero row's address, so the panel is k^3 + 1 rows, not
+// 16 k^2 (k = 9: 730 rows, not 1296). Its row stride is an odd number of
+// 16-byte units (conflict-free ldmatrix rows). The chunk's class is the
+// widest whose panel, halo and output stage fit a block's shared memory
+// (stem_chunk below: 64 channels to k = 9, 16 at k = 15), the chunks of a
+// C as even as 8-channel units allow. The halo is staged twice, the second
+// copy shifted by one element, so that a lane's dz pair is one aligned
+// 4-byte load; its rows are 16 + 7 z + 1 (G = 8) or 16 + 15 z + 1 (G = 16)
+// long, and the columns past the 16 + k - 1 staged z stay zero (lanes
+// dz >= k read them against zero weights). At G = 16 a lane's A registers
+// a1 and a2 are the same pair (row g + 8, lanes 2q; row g, lanes 2q + 8:
+// both z = g + 2q + 8).
+constexpr int SC_WARPS = 8;
+constexpr int SC_THREADS = SC_WARPS * 32;
+constexpr int SC_ZT = 16;     // output z of a tile (the mma's M)
+constexpr int SC_NT = 8;      // n8 tiles of a chunk at most (64 channels)
+
+template <int K>
+struct StemChunk {
+  static constexpr int P = K / 2;
+  static constexpr int G = K <= 7 ? 8 : 16;      // dz lanes of a group
+  static constexpr int GPS = 16 / G;             // groups a k-step
+  static constexpr int KSTEPS = (K * K + GPS - 1) / GPS;
+  // y rows a warp (each B fragment feeds MT products: the panel's shared-
+  // memory reads, which bound the k <= 7 stem, a tile's output apart)
+  static constexpr int MT = G == 8 ? 2 : 1;
+  static constexpr int YT = SC_WARPS * MT;       // y rows of a tile
+  static constexpr int HY = YT + K - 1;          // halo rows
+  static constexpr int HZ = G == 8 ? 24 : 32;    // halo row: 16 + G - 1 z, + 1 shift
+  static constexpr int HW = SC_ZT + K - 1;       // staged z of a halo row
+  // one copy; the second starts 16 banks on, so the two copies' pairs of
+  // one load do not share banks
+  static constexpr int COPY = (K * HY * HZ + 63) / 64 * 64 + 32;
+  static constexpr int ROWS = K * K * K + 1;     // panel rows: the taps, then zeros
+  static constexpr int HN = K * HY * HW;         // staged halo values a tile
+  static constexpr int ITEMS = (HN + SC_THREADS - 1) / SC_THREADS;  // a thread's
+  static int smem(int stride) { return (ROWS * stride + 2 * COPY + SC_WARPS * SC_ZT * stride) * 2; }
+};
+
+// acc[m] += A[m] B over the chunk's NT n8 tiles: A[m] the k-step's fragment
+// of the warp's y row m, B from the panel rows the lane addresses (bp: its
+// row, at its column group), one load for the MT rows
+template <int MT, int NT>
+__device__ __forceinline__ void chunk_step(float (&acc)[MT][NT][4], const uint32_t (&a)[MT][4],
+                                           const bf16* bp) {
+#pragma unroll
+  for (int nb = 0; nb < NT / 2; ++nb) {
+    uint32_t bb[4];
+    ldmatrix_x4_trans(bb, bp + nb * 16);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      mma_bf16_16816(acc[m][2 * nb], a[m], bb[0], bb[1]);
+      mma_bf16_16816(acc[m][2 * nb + 1], a[m], bb[2], bb[3]);
+    }
+  }
+}
+
+// blocks an SM the registers must allow (at most 128 a thread; at 80 the
+// k <= 7 kernels spill, and the k = 7, C = 48 stem ran 11% slower on the card)
+constexpr int SC_MIN_BLOCKS = 2;
+
+// the thread's halo values of `tile` (items tid, tid + 256, ... of its
+// K x HY x HW staged values; zero outside the volume) into registers
+template <int K>
+__device__ __forceinline__ void fetch_halo(bf16 (&pre)[StemChunk<K>::ITEMS],
+                                           const bf16* __restrict__ x, long long tile, int X,
+                                           int Y, int Z, int nyt, int nzt) {
+  using T = StemChunk<K>;
+  long long r = tile;
+  const int zt = (int)(r % nzt);
+  r /= nzt;
+  const int yt = (int)(r % nyt);
+  r /= nyt;
+  const int xo = (int)(r % X);
+  const long long bi = r / X;
+#pragma unroll
+  for (int j = 0; j < T::ITEMS; ++j) {
+    const int i = threadIdx.x + j * SC_THREADS;
+    const int hz = i % T::HW, rest = i / T::HW;
+    const int hy = rest % T::HY, hx = rest / T::HY;
+    const int gx = xo - T::P + hx, gy = yt * T::YT - T::P + hy, gz = zt * SC_ZT - T::P + hz;
+    bf16 v = __float2bfloat16_rn(0.f);
+    if (i < T::HN && gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z)
+      v = x[((bi * X + gx) * Y + gy) * Z + gz];
+    pre[j] = v;
+  }
+}
+
+template <int K, int NT>
+__global__ void __launch_bounds__(SC_THREADS, SC_MIN_BLOCKS)
+stem_gemm_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ b, bf16* __restrict__ out, int B, int X,
+                       int Y, int Z, int C, int chunk, int S) {
+  using T = StemChunk<K>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][S]: row (dx k + dy) k + dz
+  bf16* halo = ws + T::ROWS * S;                 // [2][COPY]: [K][HY][HZ] each
+  bf16* os = halo + 2 * T::COPY;                 // [warps][16 z][S]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int nch = (C + chunk - 1) / chunk;
+  const int c0 = (blockIdx.x % nch) * chunk, cn = min(chunk, C - c0), nt = cn / 8;
+  const int per = gridDim.x / nch;  // blocks of this chunk
+  for (int i = tid; i < T::ROWS * S; i += SC_THREADS) {
+    const int r = i / S, c = i % S;
+    ws[i] = __float2bfloat16_rn(r < K * K * K && c < cn ? w[(long long)r * C + c0 + c] : 0.f);
+  }
+  for (int i = tid; i < 2 * T::COPY; i += SC_THREADS) halo[i] = __float2bfloat16_rn(0.f);
+  // the lane's dz pair (2q, 2q+1) of rows g and g + 8 starts at halo z
+  // g + 2q: even in copy 0, odd ones aligned in copy 1 (shifted by one)
+  const bf16* hsrc = halo + (g & 1) * (T::COPY + 1) + warp * T::MT * T::HZ + g + 2 * q;
+  // ldmatrix.trans lanes: row kr of the k-step's 16 K lanes, columns nc
+  const int kr = (lane & 7) + ((lane >> 3) & 1) * 8, nc = (lane >> 4) * 8;
+  const int h = kr / T::G, dz = kr % T::G;  // the lane's group of the k-step, its dz
+  const bf16* zrow = ws + (T::ROWS - 1) * S + nc;
+  // the lane's panel row at k-step 0 and its advance a k-step (0: the zero row)
+  const bf16* b0 = dz < K ? ws + (h * K + dz) * S + nc : zrow;
+  const int badv = dz < K ? T::GPS * K * S : 0;
+
+  const int nzt = (Z + SC_ZT - 1) / SC_ZT, nyt = (Y + T::YT - 1) / T::YT;
+  const long long ntiles = (long long)B * X * nyt * nzt;
+  for (long long tile = blockIdx.x / nch; tile < ntiles; tile += per) {
+    // the thread's halo values of the tile, all loads in flight at once,
+    // staged once every warp is done with the last tile
+    bf16 pre[T::ITEMS];
+    fetch_halo<K>(pre, x, tile, X, Y, Z, nyt, nzt);
+    long long r = tile;
+    const int zt = (int)(r % nzt);
+    r /= nzt;
+    const int yt = (int)(r % nyt);
+    r /= nyt;
+    const int xo = (int)(r % X);
+    const int bi = (int)(r / X);
+    const int z0 = zt * SC_ZT, y0 = yt * T::YT;
+    __syncthreads();  // the last tile's halo and output stage are read
+#pragma unroll
+    for (int j = 0; j < T::ITEMS; ++j) {
+      const int i = tid + j * SC_THREADS;
+      if (i < T::HN) {
+        const int o = (i / T::HW) * T::HZ + i % T::HW;  // halo (hx, hy) row, hz
+        halo[o] = pre[j];
+        halo[T::COPY + o + 1] = pre[j];
+      }
+    }
+    __syncthreads();
+    __syncthreads();
+    float acc[T::MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < T::MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    const bf16* bp = b0;
+    if constexpr (T::G == 8) {
+#pragma unroll
+      for (int s = 0; s < T::KSTEPS; ++s) {
+        uint32_t a[T::MT][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {  // group 2s (a0, a1) and 2s + 1 (a2, a3)
+          const int grp = 2 * s + hh;
+          const int gg = grp < K * K ? grp : 0;  // the padding group: zero rows
+          const bf16* row = hsrc + ((gg / K) * T::HY + gg % K) * T::HZ;
+#pragma unroll
+          for (int m = 0; m < T::MT; ++m) {
+            a[m][2 * hh] = *reinterpret_cast<const uint32_t*>(row + m * T::HZ);
+            a[m][2 * hh + 1] = *reinterpret_cast<const uint32_t*>(row + m * T::HZ + 8);
+          }
+        }
+        chunk_step<T::MT, NT>(acc, a, 2 * s + 1 >= K * K && h ? zrow : bp);
+        bp += badv;
+      }
+    } else {
+#pragma unroll 1
+      for (int dx = 0; dx < K; ++dx) {
+        const bf16* plane = hsrc + dx * T::HY * T::HZ;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+          uint32_t a[T::MT][4];
+#pragma unroll
+          for (int m = 0; m < T::MT; ++m) {
+            const bf16* row = plane + (dy + m) * T::HZ;
+            a[m][0] = *reinterpret_cast<const uint32_t*>(row);
+            a[m][1] = a[m][2] = *reinterpret_cast<const uint32_t*>(row + 8);
+            a[m][3] = *reinterpret_cast<const uint32_t*>(row + 16);
+          }
+          chunk_step<T::MT, NT>(acc, a, bp);
+          bp += badv;
+        }
+      }
+    }
+    // + bias, one rounding; 16-byte channel groups through the warp's stage,
+    // a y row at a time
+    bf16* o = os + warp * SC_ZT * S;
+#pragma unroll
+    for (int m = 0; m < T::MT; ++m) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n >= nt) break;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(b + c0 + n * 8 + 2 * q));
+        *reinterpret_cast<uint32_t*>(o + g * S + n * 8 + 2 * q) =
+            pack_bf16x2(acc[m][n][0] + bias.x, acc[m][n][1] + bias.y);
+        *reinterpret_cast<uint32_t*>(o + (g + 8) * S + n * 8 + 2 * q) =
+            pack_bf16x2(acc[m][n][2] + bias.x, acc[m][n][3] + bias.y);
+      }
+      __syncwarp();
+      const int gy = y0 + warp * T::MT + m;
+      for (int i = lane; i < SC_ZT * nt; i += 32) {  // 16 voxels x nt pieces of 16 bytes
+        const int v = i / nt, piece = i % nt;
+        if (gy < Y && z0 + v < Z)
+          *reinterpret_cast<uint4*>(out + ((((long long)bi * X + xo) * Y + gy) * Z + z0 + v) * C +
+                                    c0 + piece * 8) =
+              *reinterpret_cast<const uint4*>(o + v * S + piece * 8);
+      }
+      __syncwarp();  // the stage is read before the next row writes it
+    }
+  }
+}
+
+// The chunk of channels a block of stem_gemm_chunk_kernel<K, NT> holds at
+// C: the widest class (at most 64 channels) whose block fits, then C split
+// into that many chunks as even as 8-channel units allow; NT the chunk's
+// class, the panel's row stride and the block's shared memory from it
+struct Chunks {
+  int chunk, nt, stride, smem;
+};
+template <int K>
+Chunks stem_chunk(int C) {
+  int cmax = SC_NT;
+  while (cmax > 2 && StemChunk<K>::smem(stem_row_stride(cmax)) > SMEM_OPTIN) cmax -= 2;
+  const int units = C / 8, n = (units + cmax - 1) / cmax;
+  const int chunk = 8 * ((units + n - 1) / n), nt = stem_nt_class(chunk / 8);
+  return {chunk, nt, stem_row_stride(nt), StemChunk<K>::smem(stem_row_stride(nt))};
+}
+
+template <int K>
+int launch_stem_chunk(const void* x, const float* w, const float* b, void* out, int B, int X,
+                      int Y, int Z, int C, cudaStream_t stream) {
+  const Chunks ch = stem_chunk<K>(C);
+  const auto kernel = ch.nt == 2   ? stem_gemm_chunk_kernel<K, 2>
+                      : ch.nt == 4 ? stem_gemm_chunk_kernel<K, 4>
+                      : ch.nt == 6 ? stem_gemm_chunk_kernel<K, 6>
+                                   : stem_gemm_chunk_kernel<K, 8>;
+  const int nch = (C + ch.chunk - 1) / ch.chunk;
+  const long long tiles = (long long)B * X * ((Y + StemChunk<K>::YT - 1) / StemChunk<K>::YT) *
+                          ((Z + SC_ZT - 1) / SC_ZT);
+  long long cap = 0;
+  const int e = persistent_grid(kernel, SC_THREADS, ch.smem, 1LL << 40, &cap);
+  if (e) return e;
+  // blocks a chunk: a wave of the card shared among the chunks, at most a tile each
+  long long per = cap / nch;
+  per = per < 1 ? 1 : (per > tiles ? tiles : per);
+  kernel<<<(unsigned)(per * nch), SC_THREADS, ch.smem, stream>>>(
+      static_cast<const bf16*>(x), w, b, static_cast<bf16*>(out), B, X, Y, Z, C, ch.chunk,
+      ch.stride);
+  return (int)cudaGetLastError();
+}
+
 template <int K>
 int launch_tc(const void* x, const float* w, const float* b, void* out, int B, int X,
               int Y, int Z, int C, cudaStream_t stream) {
@@ -505,17 +781,14 @@ int launch_tc(const void* x, const float* w, const float* b, void* out, int B, i
   return (int)cudaGetLastError();
 }
 
+// k = 3, 5, 7 off the stems' kernels: bf16 depthwise layers whose 16-byte
+// channel groups exist on the tensor cores, the rest on the FP32 pipe
 template <typename T, int K>
 int launch(const void* x, const float* w, const float* b, void* out, int B,
            int X, int Y, int Z, int C, long long x_vstride,
            long long x_cstride, cudaStream_t stream) {
-  if ((long long)B * X * Y * Z * C == 0) return 0;
-  // bf16 on the tensor cores: the 32-channel stem, and depthwise layers
-  // whose 16-byte channel groups exist
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (sizeof(T) == 2 && aligned && x_cstride == 0 && x_vstride == 1 && C == SG_C)
-    return launch_stem_gemm<K>(x, w, b, out, B, X, Y, Z, stream);
   if (sizeof(T) == 2 && aligned && x_cstride == 1 && x_vstride == C && C % TC_WARPS == 0)
     return launch_tc<K>(x, w, b, out, B, X, Y, Z, C, stream);
   const int smem = smem_bytes<K>(sizeof(T));
@@ -532,8 +805,9 @@ int launch(const void* x, const float* w, const float* b, void* out, int B,
 
 // ---- any other odd k: a thread an output value ---------------------------------
 //
-// JAX's schema takes any odd KERNEL_SIZE >= 3; the kernels above
-// instantiate 3, 5 and 7. Every other odd k runs `dwconv3d_any_kernel`: k a
+// JAX's schema takes any odd KERNEL_SIZE >= 3; the depthwise kernels above
+// instantiate 3, 5 and 7, the stems' GEMMs take bf16 stems to k = 15. Every
+// other odd k runs `dwconv3d_any_kernel`: k a
 // run-time value, one thread an output value (channels fastest, so a warp
 // reads neighbouring channels of one voxel), its k^3 taps read through the
 // cache and summed in f32 in (dx, dy, dz) order, the bias added in f32 and
@@ -587,17 +861,95 @@ int launch_any(int k, const void* x, const float* w, const float* b, void* out, 
   return (int)cudaGetLastError();
 }
 
+// The kernel a launch takes: the one decision the entry point and the route
+// query share. A bf16 stem (one input channel read for all C) with C % 8 ==
+// 0, 8 <= C <= 256 and k <= 15 runs a stem GEMM on the tensor cores (the 32-
+// channel templates at k = 3, 5, 7); every other k = 3, 5, 7 runs `launch`
+// above (the depthwise tensor-core kernel for 16-byte-aligned bf16 channel
+// groups, else the FP32 kernel: the name given is for aligned operands);
+// every other odd k the run-time-k kernel.
+enum Route { R_NONE, R_STEM32, R_STEM_CHUNK, R_TC, R_FP32, R_ANY };
+
+Route route(int dtype, long long x_cstride, int C, int k) {
+  if (k < 3 || k % 2 == 0 || C < 1 || (dtype != SKOOTS_BF16 && dtype != SKOOTS_F32))
+    return R_NONE;
+  if (dtype == SKOOTS_BF16 && x_cstride == 0 && C % 8 == 0 && C >= 8 && C <= 256 && k <= 15)
+    return C == SG_C && k <= 7 ? R_STEM32 : R_STEM_CHUNK;
+  if (k > 7) return R_ANY;
+  return dtype == SKOOTS_BF16 && x_cstride == 1 && C % TC_WARPS == 0 ? R_TC : R_FP32;
+}
+
+const char* route_name(Route r, int dtype, int C, int k) {
+  static const char* const stem32[] = {"stem_gemm_kernel<3>", "stem_gemm_kernel<5>",
+                                       "stem_gemm_kernel<7>"};
+#define SKOOTS_CHUNK_NAMES(K)                                                        \
+  {"stem_gemm_chunk_kernel<" #K ",2>", "stem_gemm_chunk_kernel<" #K ",4>",                \
+   "stem_gemm_chunk_kernel<" #K ",6>", "stem_gemm_chunk_kernel<" #K ",8>"}
+  static const char* const chunk[7][4] = {SKOOTS_CHUNK_NAMES(3),  SKOOTS_CHUNK_NAMES(5),
+                                          SKOOTS_CHUNK_NAMES(7),  SKOOTS_CHUNK_NAMES(9),
+                                          SKOOTS_CHUNK_NAMES(11), SKOOTS_CHUNK_NAMES(13),
+                                          SKOOTS_CHUNK_NAMES(15)};
+#undef SKOOTS_CHUNK_NAMES
+  static const char* const tc[] = {"dwconv3d_tc_kernel<3>", "dwconv3d_tc_kernel<5>",
+                                   "dwconv3d_tc_kernel<7>"};
+  static const char* const fp32[2][3] = {
+      {"dwconv3d_kernel<float,3>", "dwconv3d_kernel<float,5>", "dwconv3d_kernel<float,7>"},
+      {"dwconv3d_kernel<bf16,3>", "dwconv3d_kernel<bf16,5>", "dwconv3d_kernel<bf16,7>"}};
+  static const char* const any[2] = {"dwconv3d_any_kernel<float>", "dwconv3d_any_kernel<bf16>"};
+  const int ki = (k - 3) / 2;
+  switch (r) {
+    case R_STEM32: return stem32[ki];
+    case R_STEM_CHUNK: {
+      int nt = 0;
+      switch (k) {
+        case 3: nt = stem_chunk<3>(C).nt; break;
+        case 5: nt = stem_chunk<5>(C).nt; break;
+        case 7: nt = stem_chunk<7>(C).nt; break;
+        case 9: nt = stem_chunk<9>(C).nt; break;
+        case 11: nt = stem_chunk<11>(C).nt; break;
+        case 13: nt = stem_chunk<13>(C).nt; break;
+        default: nt = stem_chunk<15>(C).nt;
+      }
+      return chunk[ki][nt / 2 - 1];
+    }
+    case R_TC: return tc[ki];
+    case R_FP32: return fp32[dtype == SKOOTS_BF16][ki];
+    case R_ANY: return any[dtype == SKOOTS_BF16];
+    default: return nullptr;
+  }
+}
+
 template <typename T>
-int dispatch_k(int k, const void* x, const float* w, const float* b,
-               void* out, int B, int X, int Y, int Z, int C,
-               long long x_vstride, long long x_cstride, cudaStream_t s) {
+int dispatch(Route r, int k, const void* x, const float* w, const float* b, void* out, int B,
+             int X, int Y, int Z, int C, long long x_vstride, long long x_cstride,
+             cudaStream_t s) {
+  if (r == R_STEM32 || r == R_STEM_CHUNK) {
+    // the stems read x as single bf16 values and write 16-byte channel
+    // groups: no other kernel takes them
+    if (x_vstride != 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (r == R_STEM32) {
+      switch (k) {
+        case 3: return launch_stem_gemm<3>(x, w, b, out, B, X, Y, Z, s);
+        case 5: return launch_stem_gemm<5>(x, w, b, out, B, X, Y, Z, s);
+        default: return launch_stem_gemm<7>(x, w, b, out, B, X, Y, Z, s);
+      }
+    }
+    switch (k) {
+      case 3: return launch_stem_chunk<3>(x, w, b, out, B, X, Y, Z, C, s);
+      case 5: return launch_stem_chunk<5>(x, w, b, out, B, X, Y, Z, C, s);
+      case 7: return launch_stem_chunk<7>(x, w, b, out, B, X, Y, Z, C, s);
+      case 9: return launch_stem_chunk<9>(x, w, b, out, B, X, Y, Z, C, s);
+      case 11: return launch_stem_chunk<11>(x, w, b, out, B, X, Y, Z, C, s);
+      case 13: return launch_stem_chunk<13>(x, w, b, out, B, X, Y, Z, C, s);
+      default: return launch_stem_chunk<15>(x, w, b, out, B, X, Y, Z, C, s);
+    }
+  }
+  if (r == R_ANY) return launch_any<T>(k, x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
   switch (k) {
     case 3: return launch<T, 3>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
     case 5: return launch<T, 5>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
-    case 7: return launch<T, 7>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
-    default:
-      if (k < 3 || k % 2 == 0) return (int)cudaErrorInvalidValue;
-      return launch_any<T>(k, x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
+    default: return launch<T, 7>(x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
   }
 }
 
@@ -610,12 +962,21 @@ extern "C" int skoots_dwconv3d(int dtype, const void* x, const void* w,
                                const void* b, void* out, int B, int X, int Y,
                                int Z, int C, int k, long long x_vstride,
                                long long x_cstride, void* stream) {
+  const Route r = route(dtype, x_cstride, C, k);
+  if (r == R_NONE) return (int)cudaErrorInvalidValue;
+  if ((long long)B * X * Y * Z * C == 0) return 0;
   const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == SKOOTS_BF16)
-    return dispatch_k<__nv_bfloat16>(k, x, wf, bf, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
-  if (dtype == SKOOTS_F32)
-    return dispatch_k<float>(k, x, wf, bf, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
-  return (int)cudaErrorInvalidValue;
+    return dispatch<__nv_bfloat16>(r, k, x, wf, bf, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
+  return dispatch<float>(r, k, x, wf, bf, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
+}
+
+// The kernel skoots_dwconv3d takes at (dtype, x_cstride, C, k) for
+// contiguous 16-byte-aligned operands, by name ("stem_gemm_chunk_kernel<9,2>",
+// "dwconv3d_tc_kernel<7>", "dwconv3d_any_kernel<bf16>", ...), or null where
+// it refuses them. A pure function of its integers.
+extern "C" const char* skoots_dwconv3d_route(int dtype, int x_cstride, int C, int k) {
+  return route_name(route(dtype, x_cstride, C, k), dtype, C, k);
 }

@@ -45,9 +45,14 @@
 // column, read as aligned bf16 pairs from a halo staged twice (the second
 // copy shifted by one element), as the stem's forward does. A warp owns one
 // dx, the block one (x, 16 y, 16 z) tile at a time of a persistent grid.
+// Every other bf16 stem with C % 8 == 0, 8 <= C <= 256 and odd k <= 15
+// (`stem_wgrad_chunk_kernel`): the same products with N in chunks of at
+// most 64 channels and 16 dz rows a dy at k >= 9, a warp holding a few
+// (dx, dy) items (below; tests/test_torch_stem_gemm.py states it). `route`
+// is the one choice of kernel, shared with `skoots_dwconv3d_wgrad_route`.
 //
-// k other than 3, 5 and 7 (any odd k, `dwconv3d_wgrad_any_kernel`): a
-// thread a weight-gradient entry of a partial row, below.
+// Any other odd k (`dwconv3d_wgrad_any_kernel`): a thread a weight-gradient
+// entry of a partial row, below.
 //
 // f32, and bf16 without 16-byte channel groups (`dwconv3d_wgrad_kernel`):
 // FP32 FMAs. The tensor cores would round f32 operands to TF32, which is
@@ -520,9 +525,173 @@ stem_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
       }
 }
 
+// ---- every other bf16 stem (C % 8 == 0, 8 <= C <= 256, odd k <= 15) -----------
+//
+// stem_wgrad_tc_kernel's products with N and k free. A product is, for one
+// (dx, dy) item and one (x, y) column, E[m][c] = sum over 16 z of
+// A[m][z] g[x, y, z0 + z, c], A a Hankel window of the input column x + dx,
+// y + dy: PAIRED (k <= 7) rows m = dz of dy (0-7) and of dy + 1 (8-15), an
+// item a dy pair; else (k >= 9) rows m = the 16 dz of one dy, an item a dy.
+// N is a chunk of at most 64 channels as NT = 2, 4, 6 or 8 n8 tiles (a
+// compile-time count; a chunk narrower than its class reads zero cotangent
+// columns, whose sums are dropped), K the 16 z. A warp
+// holds the sums of at most SWC_ACC / NT items (64 f32 a thread); a block
+// of 8 warps one group of the k * (items of a dx) items and one channel
+// chunk, walking (x, 16 y, 16 z) tiles of a persistent grid. Every (group,
+// chunk) block of one slot walks the same tiles in the same order and
+// writes its items' taps of its chunk to the slot's partial row, so each
+// row is written whole and once, and wgrad_reduce_kernel adds the rows in
+// its fixed order: the same result every run. A tile stages the
+// cotangent's chunk (cp.async, 16-byte channel groups) and the input halo
+// of the group's dx planes twice, the second copy shifted by one element,
+// so a lane's z pair is one aligned 4-byte load (rows of 16 + 15 z + 1;
+// the columns past 16 + k - 1 stay zero). In the 16-row form a lane's a1
+// and a2 are the same pair (z = g + 2q + 8).
+constexpr int SWC_WARPS = 8;
+constexpr int SWC_THREADS = SWC_WARPS * 32;
+constexpr int SWC_HZ = 32;    // halo row: 16 + 15 z, + 1 shift
+constexpr int SWC_ACC = 16;   // items x n8 tiles of a warp's sums
+constexpr int SWC_NTMAX = 8;  // n8 tiles of a chunk at most (64 channels)
+
+template <int NT, bool PAIRED>
+__global__ void __launch_bounds__(SWC_THREADS)
+stem_wgrad_chunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                        float* __restrict__ partial, int B, int X, int Y, int Z, int C, int k,
+                        int chunk, int S, int ngr, int copy) {
+  constexpr int IPW = SWC_ACC / NT;  // items a warp at most
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw);  // [16 y][16 z][S]
+  bf16* halo = gs + SW_YT * SW_ZT * S;            // [2][copy]: [dx planes][HY][HZ] each
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  const int P = k / 2, HY = SW_YT + k - 1, HW = SW_ZT + k - 1;
+  const int per_dx = PAIRED ? (k + 1) / 2 : k;  // items of one dx
+  const int items = k * per_dx;
+  const int nch = (C + chunk - 1) / chunk;
+  const int gc = blockIdx.x % (ngr * nch), slot = blockIdx.x / (ngr * nch);
+  const int grp = gc % ngr;
+  const int c0 = (gc / ngr) * chunk, nt = min(chunk, C - c0) / 8;
+  const int nper = gridDim.x / (ngr * nch);
+  // the group's items i0 ... i1 - 1, dealt evenly to the warps; its dx planes
+  const int ipg = (items + ngr - 1) / ngr;
+  const int i0 = grp * ipg, i1 = min(items, i0 + ipg);
+  const int ipw = (ipg + SWC_WARPS - 1) / SWC_WARPS;
+  const int my0 = i0 + warp * ipw, myn = max(0, min(ipw, i1 - my0));
+  const int dx_lo = i0 / per_dx, ndx = (i1 - 1) / per_dx - dx_lo + 1;
+  // the item's first halo row (dx plane, dy) in the group's halo
+  int hoff[IPW];
+#pragma unroll
+  for (int i = 0; i < IPW; ++i) {
+    const int it = my0 + i, dx = it / per_dx, r = it % per_dx;
+    hoff[i] = ((dx - dx_lo) * HY + (PAIRED ? 2 * r : r)) * SWC_HZ;
+  }
+  // zeros past the staged columns: the halo's, and the cotangent's past the
+  // chunk (read as the class's zero columns)
+  for (int i = tid; i < SW_YT * SW_ZT * S + 2 * copy; i += SWC_THREADS)
+    gs[i] = __float2bfloat16_rn(0.f);
+  // the lane's pair of z (2q, 2q + 1) + dz (= gq) starts at halo z gq + 2q:
+  // even in copy 0, odd ones aligned in copy 1 (shifted by one)
+  const bf16* hsrc = halo + (gq & 1) * (copy + 1) + gq + 2 * q;
+  const int kr = (lane & 7) + ((lane >> 3) & 1) * 8, nc = (lane >> 4) * 8;
+
+  float acc[IPW][NT][4];
+#pragma unroll
+  for (int i = 0; i < IPW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+
+  const int nzt = (Z + SW_ZT - 1) / SW_ZT, nyt = (Y + SW_YT - 1) / SW_YT;
+  const long long ntiles = (long long)B * X * nyt * nzt;
+  for (long long tile = slot; tile < ntiles; tile += nper) {
+    long long r = tile;
+    const int zt = (int)(r % nzt);
+    r /= nzt;
+    const int yt = (int)(r % nyt);
+    r /= nyt;
+    const int xo = (int)(r % X);
+    const int bi = (int)(r / X);
+    const int z0 = zt * SW_ZT, y0 = yt * SW_YT;
+    __syncthreads();  // every warp is done with the last tile
+    // the cotangent's chunk, 16-byte pieces of 8 channels, zero outside
+    for (int i = tid; i < SW_YT * SW_ZT * nt; i += SWC_THREADS) {
+      const int piece = i % nt, v = i / nt, zz = v % SW_ZT, yy = v / SW_ZT;
+      const int gy = y0 + yy, gz = z0 + zz;
+      const bool ok = gy < Y && gz < Z;
+      const bf16* src =
+          ok ? g + ((((long long)bi * X + xo) * Y + gy) * Z + gz) * C + c0 + piece * 8 : g;
+      cp_async16(gs + v * S + piece * 8, src, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    for (int i = tid; i < ndx * HY * HW; i += SWC_THREADS) {
+      const int hz = i % HW;
+      const int rest = i / HW;
+      const int hy = rest % HY, hx = rest / HY;
+      const int gx = xo - P + dx_lo + hx, gy = y0 - P + hy, gz = z0 - P + hz;
+      bf16 v = __float2bfloat16_rn(0.f);
+      if (gx >= 0 && gx < X && gy >= 0 && gy < Y && gz >= 0 && gz < Z)
+        v = x[(((long long)bi * X + gx) * Y + gy) * Z + gz];
+      const int o = (hx * HY + hy) * SWC_HZ + hz;
+      halo[o] = v;
+      halo[copy + o + 1] = v;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const int ny = min(SW_YT, Y - y0);
+    for (int yy = 0; yy < ny; ++yy) {
+      uint32_t bb[NT / 2][4];
+#pragma unroll
+      for (int nb = 0; nb < NT / 2; ++nb)
+        ldmatrix_x4_trans(bb[nb], gs + (yy * SW_ZT + kr) * S + nb * 16 + nc);
+#pragma unroll
+      for (int i = 0; i < IPW; ++i) {
+        if (i >= myn) break;
+        const bf16* r0 = hsrc + hoff[i] + yy * SWC_HZ;
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(r0);
+        if constexpr (PAIRED) {
+          a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+          // a pair's second dy past k reads the row after the plane (within
+          // the halo's padding): its rows 8-15 are dropped
+          a[1] = *reinterpret_cast<const uint32_t*>(r0 + SWC_HZ);
+          a[3] = *reinterpret_cast<const uint32_t*>(r0 + SWC_HZ + 8);
+        } else {
+          a[1] = a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+          a[3] = *reinterpret_cast<const uint32_t*>(r0 + 16);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NT / 2; ++nb) {
+          mma_bf16_16816(acc[i][2 * nb], a, bb[nb][0], bb[nb][1]);
+          mma_bf16_16816(acc[i][2 * nb + 1], a, bb[nb][2], bb[nb][3]);
+        }
+      }
+    }
+  }
+
+  // the slot's row: tap (dx, dy, dz), channels c0 + n * 8 + 2q, + 1
+  float* row = partial + (long long)slot * k * k * k * C + c0 + 2 * q;
+#pragma unroll
+  for (int i = 0; i < IPW; ++i) {
+    if (i >= myn) break;
+    const int it = my0 + i, dx = it / per_dx, r = it % per_dx;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int dy = PAIRED ? 2 * r + h : r, dz = PAIRED ? gq : gq + 8 * h;
+      if (dy >= k || dz >= k) continue;
+      float* o = row + (long long)((dx * k + dy) * k + dz) * C;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        if (n < nt)
+          *reinterpret_cast<float2*>(o + n * 8) =
+              make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+    }
+  }
+}
+
 // ---- launch plans ---------------------------------------------------------------
 
-enum Path { FP32 = 0, DEPTHWISE_TC = 1, STEM_TC = 2, ANY_K = 3 };
+enum Path { FP32 = 0, DEPTHWISE_TC = 1, STEM_TC = 2, ANY_K = 3, STEM_CHUNK = 4 };
 
 // what a call launches, from make_plan; the caller keeps it as int32
 // [PLAN_INTS] (skoots_dwconv3d_wgrad_plan) and hands it to every launch at
@@ -534,8 +703,11 @@ struct Plan {
   int nxs = 1, xt = 1, units = 0, nper = 0;  // the depthwise tensor-core kernel
                                              // (ANY_K: xt (b, x) planes a row)
   int smem = 0;
+  int chunk = 0, stride = 0, ngr = 0, copy = 0;  // STEM_CHUNK: channels a block,
+                                                 // their row stride, item groups,
+                                                 // one halo copy (elements)
 };
-constexpr int PLAN_INTS = 8;
+constexpr int PLAN_INTS = 12;
 static_assert(sizeof(Plan) == PLAN_INTS * sizeof(int), "Plan is PLAN_INTS ints");
 
 // The card's SM count and `kernel`'s resident blocks an SM at `smem`
@@ -564,20 +736,120 @@ cudaError_t occupancy(Kernel kernel, int threads, int smem, int* sms, int* per_s
   return cudaSuccess;
 }
 
+// The kernel a launch takes: the one decision the plan and the route query
+// share. A bf16 stem with C % 8 == 0, 8 <= C <= 256 and k <= 15 runs a stem
+// GEMM on the tensor cores (the 32-channel templates at k = 3, 5, 7); every
+// other k = 3, 5, 7 the depthwise tensor-core kernel (bf16 16-byte channel
+// groups, aligned, Y Z C < 2^31: the name given is for such operands) or the
+// FP32 kernel; every other odd k the run-time-k kernel.
+enum Route { R_NONE, R_STEM32, R_STEM_CHUNK, R_TC, R_FP32, R_ANY };
+
+Route route(int dtype, long long x_cstride, int C, int k) {
+  if (k < 3 || k % 2 == 0 || C < 1 || (dtype != SKOOTS_BF16 && dtype != SKOOTS_F32))
+    return R_NONE;
+  if (dtype == SKOOTS_BF16 && x_cstride == 0 && C % 8 == 0 && C >= 8 && C <= 256 && k <= 15)
+    return C == SW_C && k <= 7 ? R_STEM32 : R_STEM_CHUNK;
+  if (k > 7) return R_ANY;
+  return dtype == SKOOTS_BF16 && x_cstride == 1 && C % WT_WARPS == 0 ? R_TC : R_FP32;
+}
+
+// stem_wgrad_chunk_kernel's chunk of C: at most 64 channels, the chunks as
+// even as 8-channel units allow
+int wgrad_chunk(int C) {
+  const int units = C / 8, n = (units + SWC_NTMAX - 1) / SWC_NTMAX;
+  return 8 * ((units + n - 1) / n);
+}
+
+const char* route_name(Route r, int dtype, int C, int k) {
+  static const char* const stem32[] = {"stem_wgrad_tc_kernel<3>", "stem_wgrad_tc_kernel<5>",
+                                       "stem_wgrad_tc_kernel<7>"};
+  static const char* const chunk[4][2] = {
+      {"stem_wgrad_chunk_kernel<2,0>", "stem_wgrad_chunk_kernel<2,1>"},
+      {"stem_wgrad_chunk_kernel<4,0>", "stem_wgrad_chunk_kernel<4,1>"},
+      {"stem_wgrad_chunk_kernel<6,0>", "stem_wgrad_chunk_kernel<6,1>"},
+      {"stem_wgrad_chunk_kernel<8,0>", "stem_wgrad_chunk_kernel<8,1>"}};
+  static const char* const tc[] = {"dwconv3d_wgrad_tc_kernel<3>", "dwconv3d_wgrad_tc_kernel<5>",
+                                   "dwconv3d_wgrad_tc_kernel<7>"};
+  static const char* const fp32[2][3] = {
+      {"dwconv3d_wgrad_kernel<float,3>", "dwconv3d_wgrad_kernel<float,5>",
+       "dwconv3d_wgrad_kernel<float,7>"},
+      {"dwconv3d_wgrad_kernel<bf16,3>", "dwconv3d_wgrad_kernel<bf16,5>",
+       "dwconv3d_wgrad_kernel<bf16,7>"}};
+  static const char* const any[2] = {"dwconv3d_wgrad_any_kernel<float>",
+                                     "dwconv3d_wgrad_any_kernel<bf16>"};
+  const int ki = (k - 3) / 2;
+  switch (r) {
+    case R_STEM32: return stem32[ki];
+    case R_STEM_CHUNK: {
+      const int nt = stem_nt_class(wgrad_chunk(C) / 8);
+      return chunk[nt / 2 - 1][k <= 7];
+    }
+    case R_TC: return tc[ki];
+    case R_FP32: return fp32[dtype == SKOOTS_BF16][ki];
+    case R_ANY: return any[dtype == SKOOTS_BF16];
+    default: return nullptr;
+  }
+}
+
+// the instantiation for an n8-tile class and k <= 7 (paired rows)
+auto stem_wgrad_chunk_of(int nt, bool paired) {
+  return paired ? (nt == 2   ? stem_wgrad_chunk_kernel<2, true>
+                   : nt == 4 ? stem_wgrad_chunk_kernel<4, true>
+                   : nt == 6 ? stem_wgrad_chunk_kernel<6, true>
+                             : stem_wgrad_chunk_kernel<8, true>)
+                : (nt == 2   ? stem_wgrad_chunk_kernel<2, false>
+                   : nt == 4 ? stem_wgrad_chunk_kernel<4, false>
+                   : nt == 6 ? stem_wgrad_chunk_kernel<6, false>
+                             : stem_wgrad_chunk_kernel<8, false>);
+}
+
+// the plan of stem_wgrad_chunk_kernel at (B, X, Y, Z, C, k)
+cudaError_t make_plan_stem_chunk(int B, int X, int Y, int Z, int C, int k, Plan* plan) {
+  Plan p;
+  p.path = STEM_CHUNK;
+  p.chunk = wgrad_chunk(C);
+  const int nt = stem_nt_class(p.chunk / 8), nch = (C + p.chunk - 1) / p.chunk;
+  p.stride = stem_row_stride(nt);
+  const bool paired = k <= 7;
+  const int per_dx = paired ? (k + 1) / 2 : k, items = k * per_dx;
+  const int ipb = SWC_WARPS * (SWC_ACC / nt);  // items a block at most
+  p.ngr = (items + ipb - 1) / ipb;
+  // the most dx planes a group's items span, and one halo copy of them
+  // (padded: a pair's second dy past k reads a row past the last plane)
+  const int ipg = (items + p.ngr - 1) / p.ngr;
+  int ndx = 1;
+  for (int grp = 0; grp < p.ngr; ++grp) {
+    const int i0 = grp * ipg, i1 = i0 + ipg < items ? i0 + ipg : items;
+    const int n = (i1 - 1) / per_dx - i0 / per_dx + 1;
+    ndx = n > ndx ? n : ndx;
+  }
+  p.copy = (ndx * (SW_YT + k - 1) * SWC_HZ + 2 * SWC_HZ + 63) / 64 * 64 + 32;
+  p.smem = (SW_YT * SW_ZT * p.stride + 2 * p.copy) * 2;
+  const long long tiles = (long long)B * X * ((Y + SW_YT - 1) / SW_YT) *
+                          ((Z + SW_ZT - 1) / SW_ZT);
+  long long cap = 0;
+  const int e = persistent_grid(stem_wgrad_chunk_of(nt, paired), SWC_THREADS, p.smem,
+                                1LL << 40, &cap);
+  if (e) return (cudaError_t)e;
+  // slots (partial rows): a wave of the card shared among the (group, chunk)
+  // blocks of a slot, at most a tile each
+  long long nper = cap / ((long long)p.ngr * nch);
+  nper = nper < 1 ? 1 : (nper > tiles ? tiles : nper);
+  p.nper = p.rows = (int)nper;
+  p.grid = (int)(nper * p.ngr * nch);
+  *plan = p;
+  return cudaSuccess;
+}
+
 template <typename T, int K>
 cudaError_t make_plan(const void* x, const void* g, int B, int X, int Y, int Z, int C,
                       long long x_vstride, long long x_cstride, Plan* plan) {
   Plan p;
-  if ((long long)B * X * Y * Z * C == 0) {  // no products: only the reduce, of 0 rows
-    *plan = p;
-    return cudaSuccess;
-  }
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const bool bf = sizeof(T) == 2;
   cudaError_t e = cudaSuccess;
-  if (bf && reinterpret_cast<uintptr_t>(g) % 16 == 0 && x_cstride == 0 && x_vstride == 1 &&
-      C == SW_C) {
+  if (bf && x_cstride == 0 && C == SW_C) {
     using S = StemW<K>;
     p.path = STEM_TC;
     p.smem = S::SMEM;
@@ -668,10 +940,27 @@ int launch(const void* x, const void* g, float* partial, float* out, int B, int 
   return (int)cudaGetLastError();
 }
 
+int launch_stem_chunk(int k, const void* x, const void* g, float* partial, float* out, int B,
+                      int X, int Y, int Z, int C, const Plan& p, cudaStream_t stream) {
+  const int n = k * k * k * C;
+  if (p.rows > 0) {
+    stem_wgrad_chunk_of(stem_nt_class(p.chunk / 8), k <= 7)<<<p.grid, SWC_THREADS, p.smem,
+                                                                stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(g), partial, B, X, Y, Z, C, k,
+        p.chunk, p.stride, p.ngr, p.copy);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  wgrad_reduce_kernel<<<(n + RED_COLS - 1) / RED_COLS, RED_ROWS * RED_COLS, 0, stream>>>(
+      partial, out, p.rows, n);
+  return (int)cudaGetLastError();
+}
+
 // ---- any other odd k: a thread a weight-gradient entry of a row ------------------
 //
-// JAX's schema takes any odd KERNEL_SIZE >= 3; the kernels above
-// instantiate 3, 5 and 7. Every other odd k runs
+// JAX's schema takes any odd KERNEL_SIZE >= 3; the depthwise kernels above
+// instantiate 3, 5 and 7, the stems' GEMMs take bf16 stems to k = 15. Every
+// other odd k runs
 // `dwconv3d_wgrad_any_kernel`: k a run-time value; partial row r owns the
 // (b, x) planes r * xt ... of the batch, and thread (r, e) sums over them,
 // in (b, x, y, z) order, the products of entry e = ((dx k + dy) k + dz) C + c
@@ -764,26 +1053,43 @@ template <typename T>
 int dispatch_launch(int k, const void* x, const void* g, float* partial, float* out, int B,
                     int X, int Y, int Z, int C, long long x_vstride, long long x_cstride,
                     const Plan& p, cudaStream_t s) {
+  if (p.path == STEM_CHUNK) {
+    if (route(sizeof(T) == 2 ? SKOOTS_BF16 : SKOOTS_F32, x_cstride, C, k) != R_STEM_CHUNK ||
+        reinterpret_cast<uintptr_t>(g) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    return launch_stem_chunk(k, x, g, partial, out, B, X, Y, Z, C, p, s);
+  }
+  if (p.path == ANY_K)
+    return launch_any<T>(k, x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
   switch (k) {
     case 3: return launch<T, 3>(x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
     case 5: return launch<T, 5>(x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
     case 7: return launch<T, 7>(x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
-    default:
-      if (k < 3 || k % 2 == 0 || p.path != ANY_K) return (int)cudaErrorInvalidValue;
-      return launch_any<T>(k, x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t dispatch_plan(int k, const void* x, const void* g, int B, int X, int Y, int Z,
                           int C, long long x_vstride, long long x_cstride, Plan* p) {
+  const Route r = route(sizeof(T) == 2 ? SKOOTS_BF16 : SKOOTS_F32, x_cstride, C, k);
+  if (r == R_NONE) return cudaErrorInvalidValue;
+  if ((long long)B * X * Y * Z * C == 0) {  // no products: only the reduce, of 0 rows
+    *p = Plan();
+    p->path = k <= 7 ? FP32 : ANY_K;
+    return cudaSuccess;
+  }
+  if (r == R_STEM32 || r == R_STEM_CHUNK) {
+    // the stems read x as single bf16 values and g as 16-byte channel
+    // groups: no other kernel takes them
+    if (x_vstride != 1 || reinterpret_cast<uintptr_t>(g) % 16 != 0) return cudaErrorInvalidValue;
+    if (r == R_STEM_CHUNK) return make_plan_stem_chunk(B, X, Y, Z, C, k, p);
+  }
+  if (r == R_ANY) return make_plan_any<T>(k, B, X, C, p);
   switch (k) {
     case 3: return make_plan<T, 3>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
     case 5: return make_plan<T, 5>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
-    case 7: return make_plan<T, 7>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
-    default:
-      if (k < 3 || k % 2 == 0) return cudaErrorInvalidValue;
-      return make_plan_any<T>(k, B, X, C, p);
+    default: return make_plan<T, 7>(x, g, B, X, Y, Z, C, x_vstride, x_cstride, p);
   }
 }
 
@@ -819,7 +1125,7 @@ extern "C" int skoots_dwconv3d_wgrad(int dtype, const void* x, const void* g, vo
                                      const int* plan, void* stream) {
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
-  if (p.path < FP32 || p.path > ANY_K || p.rows < 0) return (int)cudaErrorInvalidValue;
+  if (p.path < FP32 || p.path > STEM_CHUNK || p.rows < 0) return (int)cudaErrorInvalidValue;
   float* pf = static_cast<float*>(partial);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -829,4 +1135,12 @@ extern "C" int skoots_dwconv3d_wgrad(int dtype, const void* x, const void* g, vo
   if (dtype == SKOOTS_F32)
     return dispatch_launch<float>(k, x, g, pf, of, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The kernel skoots_dwconv3d_wgrad takes at (dtype, x_cstride, C, k) for
+// contiguous 16-byte-aligned operands, by name ("stem_wgrad_chunk_kernel<2,0>",
+// "dwconv3d_wgrad_tc_kernel<7>", "dwconv3d_wgrad_any_kernel<bf16>", ...), or
+// null where it refuses them. A pure function of its integers.
+extern "C" const char* skoots_dwconv3d_wgrad_route(int dtype, int x_cstride, int C, int k) {
+  return route_name(route(dtype, x_cstride, C, k), dtype, C, k);
 }

@@ -48,9 +48,12 @@ _SIGNATURES = {
                         _F, _P),
     # dtype, x, ls, lb, w, b, out, V, C, N, eps, stream
     "skoots_ln_head": (_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P),
-    # -> the kernel's name (null: refused); dtype, C / dtype, C, N
+    # -> the kernel's name (null: refused); dtype, C / dtype, C, N / dtype,
+    # x_cstride, C, k
     "skoots_mlp_tail_route": (_I, _I),
     "skoots_ln_head_route": (_I, _I, _I),
+    "skoots_dwconv3d_route": (_I, _I, _I, _I),
+    "skoots_dwconv3d_wgrad_route": (_I, _I, _I, _I),
     # labels_in, fg, labels_out, tiles, count, X, Y, Z, passes, connectivity,
     # stream
     "skoots_propagate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -61,7 +64,7 @@ _SIGNATURES = {
     # (counts, not errors)
     "skoots_propagate_qmax": (),
     "skoots_propagate_tile_count": (_I, _I, _I),
-    # dtype, x, g, B, X, Y, Z, C, k, x_vstride, x_cstride, plan out (int32 [8])
+    # dtype, x, g, B, X, Y, Z, C, k, x_vstride, x_cstride, plan out (int32 [12])
     "skoots_dwconv3d_wgrad_plan": (_I, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _P),
     # dtype, x, g, partial, out, B, X, Y, Z, C, k, x_vstride, x_cstride,
     # plan, stream

@@ -27,11 +27,22 @@ weight gradient is :func:`dwconv3d_wgrad`, the bias gradient the f32 sum of
 the cotangent; dw and db round to the compute dtype, as JAX's
 ``.astype(w.dtype)`` does.
 
-Kernel sizes: every odd k >= 3, as JAX's schema takes. The kernels above
-are instantiated for k = 3, 5 and 7; every other odd k runs a simple kernel
-with a run-time k, forward (a thread an output value) and weight gradient
-(a thread a weight entry of a partial row), f32 sums. The input gradient is
-the forward kernel, so it takes the same k.
+The stem (a dense 1 -> C conv, run as this depthwise conv on the input
+broadcast to C): every bf16 stem with C % 8 == 0, 8 <= C <= 256 and odd
+k <= 15 runs an implicit GEMM on the tensor cores, forward and weight
+gradient: the 32-channel templates at k = 3, 5, 7 (``stem_gemm_kernel``,
+``stem_wgrad_tc_kernel``), every other such stem ``stem_gemm_chunk_kernel``
+and ``stem_wgrad_chunk_kernel`` (N in chunks of at most 64 channels, 16 dz
+lanes a group at k >= 9; ``tests/test_torch_stem_gemm.py`` states both).
+
+Kernel sizes: every odd k >= 3, as JAX's schema takes. The depthwise
+kernels are instantiated for k = 3, 5 and 7; every other odd k of a
+depthwise layer (and stems the GEMMs do not take: f32, k > 15, C off the
+rule) runs a simple kernel with a run-time k, forward (a thread an output
+value) and weight gradient (a thread a weight entry of a partial row), f32
+sums. The input gradient is the forward kernel on the cotangent (a
+depthwise layer), so it takes the same k. :func:`dwconv3d_route` and
+:func:`dwconv3d_wgrad_route` name the kernel a launch takes.
 
 Numerics of both forward versions: the taps accumulate in f32, the bias is
 added in f32, and the result rounds ONCE to the input dtype, as the Pallas
@@ -62,6 +73,25 @@ def dwconv3d_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
         y = F.conv3d(xf, wf, padding=k // 2, groups=c)
     y = y + b.float().view(1, c, 1, 1, 1)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+
+
+def dwconv3d_route(dt: torch.dtype, cin_stride: int, c: int, k: int) -> str | None:
+    """The CUDA kernel a forward launch takes (``csrc/dwconv.cu::
+    skoots_dwconv3d_route``) at dtype ``dt``, input channel stride
+    ``cin_stride`` (0: the stem's one channel read for all ``c``; 1: a
+    depthwise layer), ``c`` output channels and kernel size ``k``, by name
+    (``"stem_gemm_chunk_kernel<9>"``), for contiguous 16-byte-aligned
+    operands; None where the kernels refuse them. Builds the library:
+    needs ``nvcc``."""
+    return _build.route("skoots_dwconv3d_route", _build.DTYPE_CODES[dt], cin_stride, c, k)
+
+
+def dwconv3d_wgrad_route(dt: torch.dtype, cin_stride: int, c: int, k: int) -> str | None:
+    """The CUDA kernel a weight-gradient launch takes (``csrc/
+    dwconv_wgrad.cu::skoots_dwconv3d_wgrad_route``), as
+    :func:`dwconv3d_route` names the forward's."""
+    return _build.route("skoots_dwconv3d_wgrad_route", _build.DTYPE_CODES[dt], cin_stride,
+                        c, k)
 
 
 def _check_conv_operands(what: str, x: torch.Tensor, c: int, k: int) -> None:
@@ -125,6 +155,8 @@ def dwconv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     bsz, xs, ys, zs, cin = x.shape
     x = x.contiguous()
     g = g.contiguous()
+    if cin != c and g.data_ptr() % 16:  # the stems read g as 16-byte channel groups
+        g = g.clone()
     lib = _build.library()
     dtype, cstride = _build.DTYPE_CODES[x.dtype], 1 if cin == c else 0
     # the launch plan depends on these alone (and the card): made once each
@@ -132,7 +164,7 @@ def dwconv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
            x.data_ptr() % 16 == 0, g.data_ptr() % 16 == 0)
     plan = _WGRAD_PLANS.get(key)
     if plan is None:
-        plan = (ctypes.c_int * 8)()
+        plan = (ctypes.c_int * _PLAN_INTS)()
         _build.check(lib.skoots_dwconv3d_wgrad_plan(dtype, x.data_ptr(), g.data_ptr(), bsz,
                                                      xs, ys, zs, c, k, cin, cstride, plan),
                      "dwconv3d_wgrad")
@@ -148,8 +180,9 @@ def dwconv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
 
 
 dwconv3d_wgrad.launches = 0
-# launch plans (int32 [8], csrc/dwconv_wgrad.cu::Plan; plan[1] the partial
-# rows) by the operands they depend on
+# launch plans (int32 [_PLAN_INTS], csrc/dwconv_wgrad.cu::Plan; plan[1] the
+# partial rows) by the operands they depend on
+_PLAN_INTS = 12
 _WGRAD_PLANS: dict = {}
 
 

@@ -20,7 +20,7 @@ import torch
 from propagate_cases import PASSES, corner_tube_case, plain
 
 from skoots_tpu_torch.kernels import propagate as prop_mod
-from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref
+from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_ref, dwconv3d_route
 from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_ref
 from skoots_tpu_torch.kernels.microbench import (
     SHAPE,
@@ -188,6 +188,20 @@ def test_cuda_dwconv_matches_plain_version_at_ragged_shapes(cuda_device):
     torch.cuda.synchronize()
     assert dx.dtype == torch.bfloat16 and _bf16_ulps(dx, want) <= 1.0
     assert dwconv3d.launches == 2 * len(cases) + 2
+    stems = [(c, k) for c in (16, 48, 256) for k in (3, 7, 9, 11)]
+    for c, k in stems:
+        route = dwconv3d_route(torch.bfloat16, 0, c, k)
+        assert route.startswith(f"stem_gemm_chunk_kernel<{k},"), (c, k, route)
+        assert not dwconv3d_route(torch.float32, 0, c, k).startswith("stem_"), (c, k)
+        x = torch.from_numpy(rng.standard_normal((2, 9, 14, 11, 1)).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((k, k, k, c)) / k ** 1.5).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32))
+        x = x.to(cuda_device, torch.bfloat16)
+        w = w.to(cuda_device).to(torch.bfloat16).float()
+        b = b.to(cuda_device).to(torch.bfloat16).float()
+        got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
+        assert got.dtype == torch.bfloat16 and _bf16_ulps(got, ref) <= 1.0, (c, k, route)
+    assert dwconv3d.launches == 2 * len(cases) + 2 + len(stems)
 
 
 @pytest.mark.cuda
@@ -325,8 +339,10 @@ def test_cuda_tail_and_ln_head_at_every_width(cuda_device):
 def test_cuda_dwconv_at_every_odd_k(cuda_device):
     """k = 9 and 11 (the run-time-k kernel): bf16 within 1 bf16 ulp, f32
     within 1e-5 of max|plain|, the depthwise layer and the stem, batch 2 on
-    ragged X, Y, Z; and the bf16 input gradient against its plain
-    composition."""
+    ragged X, Y, Z; the bf16 input gradient against its plain composition;
+    then the bf16 stems at C = 16, 48, 256 and k = 3, 7, 9, 11, each on the
+    stem GEMM its route names (``stem_gemm_chunk_kernel<k, NT>``), within
+    1 bf16 ulp."""
     rng = np.random.default_rng(9)
     dwconv3d.launches = 0
     cases = [((2, 9, 14, 11), 16, 16, 9), ((1, 12, 10, 13), 1, 16, 11),
@@ -355,6 +371,20 @@ def test_cuda_dwconv_at_every_odd_k(cuda_device):
     torch.cuda.synchronize()
     assert dx.dtype == torch.bfloat16 and _bf16_ulps(dx, want) <= 1.0
     assert dwconv3d.launches == 2 * len(cases) + 2
+    stems = [(c, k) for c in (16, 48, 256) for k in (3, 7, 9, 11)]
+    for c, k in stems:
+        route = dwconv3d_route(torch.bfloat16, 0, c, k)
+        assert route.startswith(f"stem_gemm_chunk_kernel<{k},"), (c, k, route)
+        assert not dwconv3d_route(torch.float32, 0, c, k).startswith("stem_"), (c, k)
+        x = torch.from_numpy(rng.standard_normal((2, 9, 14, 11, 1)).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((k, k, k, c)) / k ** 1.5).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32))
+        x = x.to(cuda_device, torch.bfloat16)
+        w = w.to(cuda_device).to(torch.bfloat16).float()
+        b = b.to(cuda_device).to(torch.bfloat16).float()
+        got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
+        assert got.dtype == torch.bfloat16 and _bf16_ulps(got, ref) <= 1.0, (c, k, route)
+    assert dwconv3d.launches == 2 * len(cases) + 2 + len(stems)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ import torch
 
 from skoots_tpu_torch.config import get_cfg_defaults
 from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel, bake_skeleton_ref
-from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad, dwconv3d_wgrad_ref
+from skoots_tpu_torch.kernels.dwconv import (dwconv3d, dwconv3d_wgrad, dwconv3d_wgrad_ref,
+                                             dwconv3d_wgrad_route)
 from skoots_tpu_torch.models import init_model
 from skoots_tpu_torch.ops.skeleton import pack_skeletons
 from skoots_tpu_torch.tools.bench_train_kernels import WGRAD_CASES, bake_cases
@@ -105,11 +106,14 @@ def test_cuda_every_parameter_gets_a_finite_gradient(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [9, 11])
+@pytest.mark.parametrize("k", [3, 7, 9, 11])
 def test_cuda_wgrad_at_every_odd_k(cuda_device, k):
-    """k other than 3, 5 and 7 (the run-time-k kernel), bf16 and f32, the
-    depthwise layer and the stem's one input channel, over a ragged batch
-    of 2: within 1e-3 * max|plain|, the same from run to run."""
+    """Every odd k, bf16 and f32, the depthwise layer and the stem's one
+    input channel, over a ragged batch of 2 (k other than 3, 5 and 7: the
+    run-time-k kernel for a depthwise layer), then the bf16 stems at C =
+    16, 48, 256 on the stem GEMM their route names
+    (``stem_wgrad_chunk_kernel<NT, k <= 7>``): within 1e-3 * max|plain|,
+    the same from run to run."""
     rng = np.random.default_rng(7 + k)
     for cin, c, shape in ((16, 16, (2, 13, 11, 9)), (1, 16, (1, 12, 10, 8)),
                           (64, 64, (1, 9, 8, 7))):
@@ -120,6 +124,17 @@ def test_cuda_wgrad_at_every_odd_k(cuda_device, k):
             ref = dwconv3d_wgrad_ref(x, g, k)
             assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), (cin, dtype)
             assert torch.equal(got, dwconv3d_wgrad(x, g, k))
+    for c in (16, 48, 256):
+        route = dwconv3d_wgrad_route(torch.bfloat16, 0, c, k)
+        assert route.startswith("stem_wgrad_chunk_kernel<") and route.endswith(
+            ",1>" if k <= 7 else ",0>"), (c, k, route)
+        x = T(rng.standard_normal((2, 11, 18, 21, 1)).astype(np.float32))
+        g = T(rng.standard_normal((2, 11, 18, 21, c)).astype(np.float32))
+        x, g = x.to(cuda_device, torch.bfloat16), g.to(cuda_device, torch.bfloat16)
+        got = dwconv3d_wgrad(x, g, k)
+        ref = dwconv3d_wgrad_ref(x, g, k)
+        assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), (c, k, route)
+        assert torch.equal(got, dwconv3d_wgrad(x, g, k)), (c, k)
 
 
 @pytest.mark.cuda
