@@ -337,6 +337,13 @@ CAMPAIGN_WGRAD_CASES = (
     ((1, 48, 48, 16), 32, 32, 7, "bf16"), ((1, 24, 24, 8), 64, 64, 7, "bf16"),
     ((1, 96, 96, 32), 16, 16, 9, "bf16"), ((1, 96, 96, 32), 1, 16, 9, "bf16"),
     ((1, 48, 48, 16), 32, 32, 11, "bf16"), ((2, 24, 20, 12), 32, 32, 9, "f32"))
+# the bf16 depthwise layers the big-k kernels do not take, which stay on the
+# run-time-k kernels (dwconv3d_any_kernel<bf16>, dwconv3d_wgrad_any_kernel<bf16>):
+# C off 8 at k = 9 and 11, and k = 17; forward and weight gradient, drawn on
+# the card from a generator of their own. ([B, X, Y, Z], Cin, C, k, dtype)
+RUNTIME_K_CASES = (
+    ((1, 48, 48, 16), 12, 12, 9, "bf16"), ((1, 48, 48, 16), 20, 20, 11, "bf16"),
+    ((1, 40, 36, 20), 16, 16, 17, "bf16"))
 # the stems' GEMMs at every width and k (csrc/dwconv.cu::stem_gemm_chunk_kernel,
 # csrc/dwconv_wgrad.cu::stem_wgrad_chunk_kernel; the 1 -> 16 k = 9 stem is a
 # campaign case above): k = 9 and 11 at 1 -> 16 and 1 -> 48 on the training
@@ -393,9 +400,14 @@ FORWARD_KERNELS_PER_TILE = {"dwconv3d": 11, "mlp_block_tail": 10, "ln_head": 1,
                             "upsample2x": 2}
 # the hand-written kernels that must run on the tensor cores (bf16)
 TENSOR_CORE_KERNELS = ("tail_tc_kernel", "tail_class_kernel", "tail_staged_kernel",
-                       "dwconv3d_tc_kernel", "stem_gemm_kernel", "stem_gemm_chunk_kernel",
-                       "ln_head_tc_kernel", "ln_head_class_kernel", "dwconv3d_wgrad_tc_kernel",
+                       "dwconv3d_tc_kernel", "dwconv3d_big_kernel", "stem_gemm_kernel",
+                       "stem_gemm_chunk_kernel", "ln_head_tc_kernel", "ln_head_class_kernel",
+                       "dwconv3d_wgrad_tc_kernel", "dwconv3d_wgrad_big_kernel",
                        "stem_wgrad_tc_kernel", "stem_wgrad_chunk_kernel")
+# run_kernel_sizes: the bench checkpoint's cfg with MODEL.KERNEL_SIZE set to
+# each of these (random weights from SEED); every bf16 depthwise launch of
+# their runs takes the big-k kernels
+KERNEL_SIZES = (9, 11)
 
 
 def _need(cond: bool, what: str) -> None:
@@ -530,6 +542,10 @@ def _check_dwconv(results, r, shape, cin, c, k, dtn, repeats=REPEATS) -> None:
     if _gemm_stem(dt, cin, c, k):
         _need(route.startswith(("stem_gemm_kernel<", "stem_gemm_chunk_kernel<")),
               f"dwconv3d: the stem 1 -> {c} k={k} routes to {route}")
+    if _big_k(dt, cin, c, k):
+        _need(route == f"dwconv3d_big_kernel<{k}>", f"dwconv3d: C={c} k={k} routes to {route}")
+    elif _runtime_k(dt, cin, c, k):
+        _need(route == "dwconv3d_any_kernel<bf16>", f"dwconv3d: C={c} k={k} routes to {route}")
     x = _randn(r, (*shape, cin), dtype=dt)
     w = _randn(r, (k, k, k, c), 1 / np.sqrt(k ** 3)).to(dt).float()
     b = _randn(r, (c,), 0.1).to(dt).float()
@@ -557,6 +573,22 @@ def _check_dwconv(results, r, shape, cin, c, k, dtn, repeats=REPEATS) -> None:
             _time_ms(lambda: F.conv3d(xv, wl, bl, padding=k // 2, groups=groups), repeats))
 
 
+def _big_k(dt, cin: int, c: int, k: int) -> bool:
+    """Whether a depthwise launch takes the big-k tensor-core kernels
+    (bf16, C % 8 == 0, k = 9 ... 15)."""
+    import torch
+
+    return dt == torch.bfloat16 and cin == c and c % 8 == 0 and 9 <= k <= 15
+
+
+def _runtime_k(dt, cin: int, c: int, k: int) -> bool:
+    """Whether a bf16 depthwise launch at k > 7 stays on the run-time-k
+    kernels (C off 8, or k > 15)."""
+    import torch
+
+    return dt == torch.bfloat16 and cin == c and k > 7 and not _big_k(dt, cin, c, k)
+
+
 def _gemm_stem(dt, cin: int, c: int, k: int) -> bool:
     """Whether the stems' tensor-core GEMMs take this dense 1 -> ``c`` conv
     (bf16, C % 8 == 0, 8 <= C <= 256, k <= 15)."""
@@ -581,6 +613,12 @@ def _check_wgrad(results, r, shape, cin, c, k, dtn, what, repeats=REPEATS) -> No
     if _gemm_stem(dt, cin, c, k):
         _need(route.startswith(("stem_wgrad_tc_kernel<", "stem_wgrad_chunk_kernel<")),
               f"dwconv3d_wgrad: the stem 1 -> {c} k={k} routes to {route}")
+    if _big_k(dt, cin, c, k):
+        _need(route == f"dwconv3d_wgrad_big_kernel<{k}>",
+              f"dwconv3d_wgrad: C={c} k={k} routes to {route}")
+    elif _runtime_k(dt, cin, c, k):
+        _need(route == "dwconv3d_wgrad_any_kernel<bf16>",
+              f"dwconv3d_wgrad: C={c} k={k} routes to {route}")
     x = _randn(r, (*shape, cin), dtype=dt)
     g = _randn(r, (*shape, c), 1e-3, dtype=dt)
     got = dwconv3d_wgrad(x, g, k)
@@ -746,6 +784,10 @@ def check_kernels() -> list:
     stems = torch.Generator(device="cuda").manual_seed(SEED + 10)
     for case in STEM_DWCONV_CASES:
         _check_dwconv(results, stems, *case)
+    # the run-time-k kernels' bf16 cases, from a generator on the card
+    runtime_k = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for case in RUNTIME_K_CASES:
+        _check_dwconv(results, runtime_k, *case)
     torch.cuda.empty_cache()
     for i, case in enumerate(TAIL_CASES + CAMPAIGN_TAIL_CASES):
         _check_tail(results, rng if i < len(TAIL_CASES) else extra, *case)
@@ -963,39 +1005,56 @@ def _drive(tag: str, fn, results: list | None = None, kernels: dict | None = Non
 
 
 @contextlib.contextmanager
-def _stem_routes(tag: str, expect: dict | None = None):
-    """While open, record the (dtype, C, k) of every stem launch (one input
-    channel read for all C) at the library's entry points
-    ``skoots_dwconv3d`` and ``skoots_dwconv3d_wgrad``, and on closing print
-    the route of each (the route queries, on the same integers). With
-    ``expect`` ({"forward": name, "wgrad": name}), every launch of each kind
-    must take that kernel and each kind must have launched; without it,
-    every bf16 stem the GEMMs take must have taken one."""
-    import torch
-
+def _entry_routes(cstride: int, wgrad_operands: set | None = None):
+    """While open, record the (dtype, C, k) of every launch whose x channel
+    stride is ``cstride`` (0: a stem, one input channel read for all C; 1: a
+    depthwise layer) at the library's entry points ``skoots_dwconv3d`` and
+    ``skoots_dwconv3d_wgrad``; on closing, fill the yielded dict with the
+    route of each, by kind ("forward", "wgrad"): the route queries, on the
+    same integers. With ``wgrad_operands``, also add to it ``_check_wgrad``'s
+    arguments (shape, input channels, C, k, dtype) of every weight-gradient
+    launch, whatever its stride."""
     from skoots_tpu_torch.kernels import _build
 
     lib = _build.library()
     entries = {"forward": "skoots_dwconv3d", "wgrad": "skoots_dwconv3d_wgrad"}
     seen = {kind: set() for kind in entries}
     saved = {kind: getattr(lib, entry) for kind, entry in entries.items()}
+    routes: dict = {}
 
     def recorder(kind):
-        def launch(*args):  # dtype, ..., C (9), k (10), x_vstride, x_cstride (12), ...
-            if args[12] == 0:
+        def launch(*args):  # dtype, x, ..., B, X, Y, Z (5-8), C, k, x_vstride, x_cstride, ...
+            if args[12] == cstride:
                 seen[kind].add((args[0], args[9], args[10]))
+            if kind == "wgrad" and wgrad_operands is not None:
+                wgrad_operands.add((tuple(args[5:9]), args[11], args[9], args[10],
+                                    "bf16" if args[0] == 1 else "f32"))
             return saved[kind](*args)
         return launch
 
     for kind, entry in entries.items():
         setattr(lib, entry, recorder(kind))
     try:
-        yield seen
+        yield routes
     finally:
         for kind, entry in entries.items():
             setattr(lib, entry, saved[kind])
-    routes = {kind: {key: _build.route(entries[kind] + "_route", key[0], 0, key[1], key[2])
-                     for key in launched} for kind, launched in seen.items()}
+    routes.update({kind: {key: _build.route(entries[kind] + "_route", key[0], cstride, key[1],
+                                            key[2]) for key in launched}
+                   for kind, launched in seen.items()})
+
+
+@contextlib.contextmanager
+def _stem_routes(tag: str, expect: dict | None = None, wgrad_operands: set | None = None):
+    """While open, record every stem launch (:func:`_entry_routes`, which
+    also fills ``wgrad_operands``), and on closing print the route of each.
+    With ``expect`` ({"forward": name, "wgrad": name}), every launch of each
+    kind must take that kernel and each kind must have launched; without
+    it, every bf16 stem the GEMMs take must have taken one."""
+    import torch
+
+    with _entry_routes(0, wgrad_operands) as routes:
+        yield routes
     names = {0: "f32", 1: "bf16"}
     print(f"{tag}: stem launches' routes " + json.dumps(
         {kind: {f"{names[d]} 1->{c} k={k}": r for (d, c, k), r in v.items()}
@@ -1561,15 +1620,22 @@ def run_wide(results: list, volume, bench_model, default_run) -> None:
     print(f"wide model: {time.time() - t0:.1f} s in all", flush=True)
 
 
-def run_wide_train_step(results: list) -> None:
-    """One bf16 training step of the wide model (``WIDE_MODEL``, random
-    weights from ``SEED``) at the bench checkpoint's training cfg (crop
-    96x96x32, batch 1) on a seeded tube crop: the median of 5 CUDA-event
-    runs of the step (forward and loss, backward, optimizer update) after a
-    warm one, each kernel's launches counted over the 5 (exact: 21 dwconv
-    (11 forward, 10 input gradients), 11 weight gradients, 10 block tails,
-    1 LN head, 2 upsamples a step), the stem's forward and weight gradient
-    on their GEMMs (the route of every launch)."""
+def run_wide_train_step(results: list, model_update: dict = WIDE_MODEL,
+                        tag: str = "wide model", stem_routes: dict | None = WIDE_STEM_ROUTES,
+                        operands: dict | None = None) -> float:
+    """One bf16 training step of the wide model (``model_update`` changes
+    ``MODEL`` of the bench cfg: ``WIDE_MODEL`` by default; random weights
+    from ``SEED``) at the bench checkpoint's training cfg (crop 96x96x32,
+    batch 1) on a seeded tube crop: the median of 5 CUDA-event runs of the
+    step (forward and loss, backward, optimizer update) after a warm one,
+    each kernel's launches counted over the 5 (exact: 21 dwconv (11
+    forward, 10 input gradients), 11 weight gradients, 10 block tails, 1 LN
+    head, 2 upsamples a step), the stem's forward and weight gradient on
+    their GEMMs (``stem_routes``, or any GEMM when None: the route of every
+    launch). With ``operands`` (a dict), the forward kernels' operands
+    (:func:`_kernel_operands`) and the weight gradient's
+    (``operands["dwconv3d_wgrad"]``) of the 5 steps are recorded into it.
+    Returns the median step in ms."""
     import torch
 
     from skoots_tpu_torch.kernels.dwconv import dwconv3d, dwconv3d_wgrad
@@ -1584,9 +1650,9 @@ def run_wide_train_step(results: list) -> None:
 
     dev = torch.device("cuda")
     cfg = _bench_train_cfg()
-    cfg["MODEL"].update(WIDE_MODEL)
+    cfg["MODEL"].update(model_update)
     _need(cfg["MODEL"]["DTYPE"] == "bfloat16" and cfg["TRAIN"]["TRAIN_BATCH_SIZE"] == 1,
-          f"wide train step: cfg {cfg['MODEL']['DTYPE']}, batch "
+          f"{tag} train step: cfg {cfg['MODEL']['DTYPE']}, batch "
           f"{cfg['TRAIN']['TRAIN_BATCH_SIZE']}")
     img, labels, skels = make_tubes(shape=TRAIN_CROP, n_tubes=4, radius=5, seed=5)
     packed = pack_skeletons(skels)
@@ -1626,20 +1692,150 @@ def run_wide_train_step(results: list) -> None:
 
     kernels = {"dwconv3d": dwconv3d, "dwconv3d_wgrad": dwconv3d_wgrad,
                "mlp_block_tail": mlp_block_tail, "ln_head": ln_head, "upsample2x": upsample2x}
-    with _stem_routes("wide model: bf16 train step", WIDE_STEM_ROUTES):
-        (times, losses), counts, _ = _drive("wide model: bf16 train step x5", five, results,
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_stem_routes(
+            f"{tag}: bf16 train step", stem_routes,
+            None if operands is None else operands.setdefault("dwconv3d_wgrad", set())))
+        if operands is not None:
+            stack.enter_context(_kernel_operands(operands))
+        (times, losses), counts, _ = _drive(f"{tag}: bf16 train step x5", five, results,
                                             kernels)
     per_step = {"dwconv3d": 21, "dwconv3d_wgrad": 11, "mlp_block_tail": 10, "ln_head": 1,
                 "upsample2x": 2}
-    print(f"wide model: bf16 train step (crop {TRAIN_CROP}, batch 1) median of 5 "
+    print(f"{tag}: bf16 train step (crop {TRAIN_CROP}, batch 1) median of 5 "
           f"{float(np.median(times)):.3f} ms (runs {[round(t, 3) for t in times]}); losses "
           f"{[round(v, 6) for v in losses]}", flush=True)
-    _need(all(np.isfinite(losses)), f"wide train step: losses {losses}")
+    _need(all(np.isfinite(losses)), f"{tag} train step: losses {losses}")
     for name, c in counts.items():
         _need(c == 5 * per_step[name],
-              f"wide train step: {name} {c} launches, expected {5 * per_step[name]}")
+              f"{tag} train step: {name} {c} launches, expected {5 * per_step[name]}")
     del model, opt, step, batch
     torch.cuda.empty_cache()
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def _depthwise_routes(tag: str, k: int):
+    """While open, record every depthwise launch (:func:`_entry_routes`); on
+    closing, every launch of each kind must have taken the big-k kernel of
+    ``k``, so no run-time-k kernel ran."""
+    with _entry_routes(1) as routes:
+        yield routes
+    expect = {"forward": f"dwconv3d_big_kernel<{k}>", "wgrad": f"dwconv3d_wgrad_big_kernel<{k}>"}
+    print(f"{tag}: depthwise launches' routes " + json.dumps(
+        {kind: {f"{'bf16' if d == 1 else 'f32'} C={c} k={kk}": r for (d, c, kk), r in v.items()}
+         for kind, v in routes.items()}), flush=True)
+    for kind, v in routes.items():
+        _need(all(r == expect[kind] for r in v.values()),
+              f"{tag}: depthwise {kind} launches routed to {sorted(set(v.values()))}, "
+              f"expected {expect[kind]}")
+
+
+def run_kernel_sizes(results: list, volume, default_run) -> None:
+    """The bench checkpoint's cfg with ``MODEL.KERNEL_SIZE`` set to each of
+    ``KERNEL_SIZES`` (dims 32-64-128-64-32, depth 2, bf16; random weights
+    from ``SEED``, written as a ``.skoots`` under ``build/``), as
+    :func:`run_wide` drives the wide model: through ``make_chunked_pipeline``
+    on the 512^3 bench phantom at ``bench.py``'s knobs, cold then warm,
+    launch counts exact, every depthwise launch on the big-k kernel of its k
+    (:func:`_depthwise_routes`) and every stem on a GEMM; each forward kernel
+    against its plain version at the run's operand shapes, cuDNN beside;
+    ``1-forward`` beside the bench model's; one tile's prob > 0.8 decisions
+    with the kernels against the plain versions (no voxel farther than
+    ``DECISION_MARGIN`` from 0.8 flips); one bf16 train step (median of 5,
+    launches exact, every depthwise weight gradient on the big-k kernel;
+    the forward and weight gradient held to their plain versions at the
+    step's shapes). Then one f32 train step at k = 9 card vs CPU (the
+    run-time-k f32 kernels)."""
+    import torch
+
+    from skoots_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from skoots_tpu_torch.config import cfg_from_dict
+    from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
+    from skoots_tpu_torch.kernels import propagate as prop_mod
+    from skoots_tpu_torch.models import init_model, model_from_checkpoint
+    from skoots_tpu_torch.ops import flood_fill
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    bench = load_checkpoint(os.path.join(ROOT, "runs", "bench_ckpt.skoots"))
+    mean, std = float(bench["dataset_mean"]), float(bench["dataset_std"])
+    want = None
+    for k in KERNEL_SIZES:
+        tag = f"k = {k} model"
+        cfg = cfg_from_dict(bench["cfg"])
+        cfg["MODEL"]["KERNEL_SIZE"] = k
+        path = os.path.join(ROOT, "build", "kernel_sizes", f"k{k}.skoots")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_checkpoint(path, cfg, init_model(cfg, SEED, device="cpu").state_dict(),
+                        dataset_mean=mean, dataset_std=std)
+        model = model_from_checkpoint(load_checkpoint(path), device=dev)
+        run = make_chunked_pipeline(
+            model, VOLUME, crop=TILE, overlap=(0, 0, 0), assign_crop=ASSIGN_TILE,
+            vector_scale=tuple(cfg["SKOOTS"]["VECTOR_SCALING"]),
+            embed_iterations=10, embed_exit_fraction=1e-3, embed_compact_div=16,
+            cc_rounds=24, cc_propagates_per_round=192, cc_jumps_per_round=0, device=dev)
+        seen: dict = {}
+        with _kernel_operands(seen, cc=flood_fill), _stem_routes(f"{tag}: inference"), \
+                _depthwise_routes(f"{tag}: inference", k):
+            inst, counts, _ = _drive(f"{tag}: inference", lambda: run(volume, mean, std),
+                                     results)
+        cold = dict(run.last_phase_s)
+        want = {n: v * run.tile_plan["forward"] for n, v in FORWARD_KERNELS_PER_TILE.items()}
+        want["propagate"] = run.last_cc_rounds * len(prop_mod.launch_plan(192))
+        _need(counts == want, f"{tag}: launches {counts}, expected {want}")
+        _need(tuple(inst.shape) == VOLUME and inst.dtype == torch.int32,
+              f"{tag}: output {tuple(inst.shape)} {inst.dtype}")
+        n_instances = int((torch.unique(inst) > 0).sum())
+        del inst
+        with _depthwise_routes(f"{tag}: warm rerun", k):
+            _, again, _ = _drive(f"{tag}: warm rerun", lambda: run(volume, mean, std))
+        _need(again == want, f"{tag}: rerun launches {again}, expected {want}")
+        print(f"{tag}: 1-forward {cold['1-forward']:.3f} s cold, "
+              f"{run.last_phase_s['1-forward']:.3f} s warm (bench model "
+              f"{default_run.last_phase_s['1-forward']:.3f} s); phases "
+              f"{json.dumps(run.last_phase_s)}; {n_instances} instances, CC rounds "
+              f"{run.last_cc_rounds}", flush=True)
+        r = torch.Generator(device="cuda").manual_seed(SEED + 20 + k)
+        for case in sorted(seen["dwconv3d"]):
+            _check_dwconv(results, r, *case, repeats=SHARDED_REPEATS)
+            torch.cuda.empty_cache()
+        for case in sorted(seen["mlp_block_tail"]):
+            _check_tail(results, r, *case, repeats=SHARDED_REPEATS)
+        for case in sorted(seen["ln_head"]):
+            _check_ln_head(results, r, *case, repeats=SHARDED_REPEATS)
+        for shape, dt in sorted(seen["upsample2x"], key=lambda case: case[0]):
+            _check_upsample(results, r, shape, dt, repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+        # one tile's prob > 0.8 decisions, the kernels against the plain versions
+        tile = ((volume[:TILE[0], :TILE[1], :TILE[2]] - mean) / std)[None, ..., None]
+        with torch.no_grad():
+            fast = model(tile)[0, ..., 4].float()
+            with _plain_model_kernels(("dwconv3d", "mlp_block_tail", "ln_head", "upsample2x")):
+                slow = model(tile)[0, ..., 4].float()
+        flips = (fast > 0.8) != (slow > 0.8)
+        far = (slow - 0.8).abs() > DECISION_MARGIN
+        print(f"decisions [{tag}]: {float(1.0 - flips.float().mean()):.6f} equal, max |dp| "
+              f"{float((fast - slow).abs().max()):.4g}; flips farther than "
+              f"{DECISION_MARGIN:g} from 0.8: {int((flips & far).sum())}", flush=True)
+        _need(not bool((flips & far).any()),
+              f"decisions [{tag}]: a voxel over {DECISION_MARGIN:g} from 0.8 decides otherwise")
+        del model, run, tile, fast, slow, flips, far
+        torch.cuda.empty_cache()
+        # one bf16 train step, then the depthwise kernels at its shapes
+        step_seen: dict = {}
+        with _depthwise_routes(f"{tag}: bf16 train step", k):
+            run_wide_train_step(results, {"KERNEL_SIZE": k}, tag, None, step_seen)
+        r = torch.Generator(device="cuda").manual_seed(SEED + 40 + k)
+        for case in sorted(step_seen["dwconv3d"]):
+            _check_dwconv(results, r, *case, repeats=SHARDED_REPEATS)
+        for shape, cin, c, kk, dtn in sorted(step_seen["dwconv3d_wgrad"]):
+            _check_wgrad(results, r, shape, cin, c, kk, dtn, f"{tag} train step",
+                         repeats=SHARDED_REPEATS)
+        torch.cuda.empty_cache()
+        print(f"{tag}: {time.time() - t0:.1f} s so far", flush=True)
+    check_grads_against_cpu({"KERNEL_SIZE": 9}, tag="k = 9")
+    print(f"kernel sizes: {time.time() - t0:.1f} s in all", flush=True)
 
 
 def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
@@ -2115,6 +2311,9 @@ def check_train_kernels(results: list) -> None:
     stems = torch.Generator(device="cuda").manual_seed(SEED + 11)
     for case in STEM_WGRAD_CASES:
         _check_wgrad(results, stems, *case, "stem")
+    runtime_k = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for case in RUNTIME_K_CASES:
+        _check_wgrad(results, runtime_k, *case, "run-time k")
     torch.cuda.empty_cache()
 
     # 2. skeleton bake over one crop, anisotropy (1, 1, 3), exact: 8 box
@@ -3817,6 +4016,7 @@ def run_all() -> list:
     check_against_cpu(ckpt, model, volume)
     torch.cuda.empty_cache()
     run_wide(results, volume, model, chunked_run)
+    run_kernel_sizes(results, volume, chunked_run)
     vol_u8, tile_bytes = run_thrifty(results, ckpt, model, volume, chunked, chunked_peak,
                                      chunked_run)
     check_sparse_probe(results, ckpt, model, volume)

@@ -173,6 +173,35 @@ inline int stem_row_stride(int nt) { return 8 * nt + 8; }
 // A block's shared memory on the H100 (227 KB), the most a launch may ask.
 constexpr int SMEM_OPTIN = 232448;
 
+// The X split of the depthwise kernels that stream x planes (csrc/dwconv.cu's
+// big-k forward, csrc/dwconv_wgrad.cu's tensor-core weight gradients): `cols`
+// units a range of X, dealt in turn to `target` blocks; a unit of xt planes
+// costs xt + k - 1 planes streamed and about two more of prologue, so the
+// split whose blocks finish soonest. Ranges of at least `min_xt` planes but
+// the last, nxs ranges of xt planes, `units` in all, at most `per_block` a
+// block. False where no split keeps the units under 2^31.
+struct XSplit {
+  int nxs, xt;
+  long long units, per_block;
+};
+
+inline bool split_x(long long cols, int X, long long target, int k, int min_xt, XSplit* s) {
+  long long best = -1;
+  for (int nxs = 1; nxs <= (X + min_xt - 1) / min_xt; ++nxs) {
+    const int xt = (X + nxs - 1) / nxs;
+    if ((X + xt - 1) / xt != nxs) continue;
+    const long long units = cols * nxs;
+    if (units > 0x7fffffffLL) break;
+    const long long per_block = (units + target - 1) / target;
+    const long long cost = per_block * (xt + k - 1 + 2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *s = {nxs, xt, units, per_block};
+    }
+  }
+  return best >= 0;
+}
+
 // The grid of a persistent kernel: at most the blocks of `threads` threads
 // and `smem` bytes the current card holds at once, at most `tiles`.
 // Returns a CUDA error code (0: none). The shared-memory opt-in and the

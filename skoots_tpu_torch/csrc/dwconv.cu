@@ -45,7 +45,12 @@
 // tests/test_torch_stem_gemm.py states it). `route` below is the one
 // choice of kernel, shared with the route query `skoots_dwconv3d_route`.
 //
-// Any other odd k (`dwconv3d_any_kernel`): a thread an output value, below.
+// bf16 depthwise layers with 16-byte channel groups at k = 9, 11, 13, 15
+// (`dwconv3d_big_kernel`): the banded product in one or two bands, the taps
+// from a weight panel in shared memory, below.
+//
+// Any other odd k (`dwconv3d_any_kernel`: f32, bf16 without 16-byte channel
+// groups, k > 15): a thread an output value, below.
 //
 // f32 and bf16 with C % 8 != 0 at k = 3, 5, 7 (`dwconv3d_kernel`): FP32
 // FMAs. A block
@@ -803,11 +808,321 @@ int launch(const void* x, const float* w, const float* b, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 depthwise layers at k = 9, 11, 13, 15 on the tensor cores ----------
+//
+// `dwconv3d_big_kernel<K>`: the banded product of dwconv3d_tc_kernel (D[16 y,
+// 8 z] += A[16 y, 16 window z] T, T[i][j] = w[dx, dy, i - j, c], one
+// mma.sync m16n8k16, bf16 operands, f32 sums; the x planes streamed through
+// a cp.async ring; the k output planes an input plane adds into kept as a
+// ring of accumulators indexed at compile time). What changes past k = 7:
+//  * one band (8 output z over a 16-column window) holds k - 1 + 8 <= 16,
+//    so k <= 9. k = 9 is one band over the window z0 - P ... z0 - P + 15;
+//    k = 11 to 15 take two: band 0 the taps dz 0-7 over that window, band 1
+//    the taps dz 8 ... k - 1 over the window from z0 - P + 8. Both windows
+//    start on 16-byte boundaries (ldmatrix rows), and a staged row holds 24
+//    window columns (48 bytes: three 16-byte units, an odd count, so the 8
+//    rows of an ldmatrix fall in distinct banks);
+//  * the k^2 (x bands) B fragments no longer fit the registers (k = 9: 162
+//    of 255 beside the accumulators, k = 11: 484), so they come from a
+//    weight panel in shared memory. A band's taps of one (dx, dy) are a row
+//    of 16 bf16: tap dz at element dz - 8 band + 8, zeros elsewhere, the rows
+//    packed back to back (a lane's reads stray at most 8 elements past its
+//    row, into the next row's leading zeros; k = 9's tap 8 sits at the next
+//    row's element 0, which that row never reads). Lane (g, q) needs the
+//    pairs T[2q, 2q + 1][g] and T[2q + 8, 2q + 9][g], elements 2q - g + 8
+//    and 2q - g + 16 of its row: the panel is stored twice, the second copy
+//    shifted by one element, so each pair is one aligned 32-bit load from
+//    copy g & 1 (the copies 16 banks apart: conflict-free);
+//  * a warp covers 32 y rows (two m16 tiles), so each B fragment feeds two
+//    products; the accumulator ring is k x 2 x 4 f32 (k = 15: 120);
+//  * a block holds CB channels (8 to k = 11, 4 at 13 and 15, the warps of
+//    a channel stacked in y), so that the panel (k^2 x bands x 64 bytes a
+//    channel), the two staged planes, the output stage and a ring of three
+//    planes as loaded fit the 227 KB of shared memory; items are one
+//    voxel's CB channels (16 or 8 bytes), copied with cp.async and
+//    transposed channel-major by the thread that copied them;
+//  * the dy loop is not unrolled (the rr and dx loops are, as the ring
+//    slots must be compile-time): k^2 x bands x 2 products a step, about
+//    900 at k = 15, not k^3 of them.
+// Same function: f32 sums of the k^3 exact products, + bias in f32, one
+// rounding. tests/test_torch_dwconv_bigk.py states this indexing in torch.
+constexpr int BG_WARPS = 8;
+constexpr int BG_THREADS = BG_WARPS * 32;
+constexpr int BG_MT = 2;        // m16 tiles (16 y rows each) of a warp
+constexpr int BG_ZT = 8;        // output z of a block: the mma's N
+constexpr int BG_ZP = 24;       // staged window row (48 bytes)
+constexpr int BG_ROW = 16;      // a band's tap row in the weight panel
+constexpr int BG_AHEAD = 2;     // input planes in flight ahead of the one computed
+constexpr int BG_DEPTH = BG_AHEAD + 1;
+
+template <int K>
+struct DwBig {
+  static constexpr int P = K / 2;
+  static constexpr int NB = K <= 9 ? 1 : 2;       // bands
+  static constexpr int ZW = 8 + 8 * NB;           // staged window columns
+  static constexpr int CB = K <= 11 ? 8 : 4;      // channels of a block
+  static constexpr int WPC = BG_WARPS / CB;       // warps of a channel, stacked in y
+  static constexpr int YT = 16 * BG_MT * WPC;     // output y of a block
+  static constexpr int YS = YT + K - 1;           // staged input rows
+  static constexpr int PLANE = YS * BG_ZP;        // one channel's staged plane
+  static constexpr int BUF = CB * PLANE;          // one staged x plane
+  static constexpr int OUT = CB * YT * BG_ZT;     // one output plane's stage [ch][y][z]
+  static constexpr int OV = YT * BG_ZT / BG_THREADS;  // output voxels a thread a step
+  static constexpr int NITEM = YS * ZW;           // staged voxels of a plane
+  static constexpr int ITEMS = (NITEM + BG_THREADS - 1) / BG_THREADS;
+  static constexpr int ROWS = CB * K * K * NB + 1;    // panel rows, then a zero row
+  // one copy of the panel (elements); the second starts 16 banks on
+  static constexpr int COPY = (ROWS * BG_ROW + 1 + 63) / 64 * 64 + 32;
+  static constexpr int SMEM =
+      (2 * BUF + 2 * OUT + 2 * COPY) * 2 + BG_DEPTH * ITEMS * BG_THREADS * CB * 2;
+};
+
+// one voxel's CB bf16 channels, as loaded
+template <int CB>
+struct BigItem;
+template <>
+struct BigItem<8> {
+  using type = uint4;
+  static __device__ __forceinline__ void copy(void* dst, const void* src) {
+    cp_async16(dst, src, 16);
+  }
+};
+template <>
+struct BigItem<4> {
+  using type = uint2;
+  static __device__ __forceinline__ void copy(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+  }
+};
+
+// w's tap of panel row `rho` (band, (dx, dy), channel c0 + its block
+// channel) at element m of that row, 0 off the band
+template <int K>
+__device__ __forceinline__ float big_tap(const float* __restrict__ w, int C, int c0, int rho,
+                                         int m) {
+  using D = DwBig<K>;
+  if (rho < 0 || rho >= D::ROWS - 1) return 0.f;
+  const int band = rho % D::NB, t = (rho / D::NB) % (K * K), c = rho / (D::NB * K * K);
+  const int dz = m - 8 + 8 * band;
+  const int end = D::NB == 1 || band == 1 ? K : 8;
+  return dz >= 8 * band && dz < end ? w[(long long)(t * K + dz) * C + c0 + c] : 0.f;
+}
+
+template <int K>
+__global__ void __launch_bounds__(BG_THREADS, 1)
+dwconv3d_big_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, bf16* __restrict__ out, int X, int Y, int Z,
+                    int C, int nxs, int xt) {
+  using D = DwBig<K>;
+  using I = BigItem<D::CB>;
+  using Item = typename I::type;
+  constexpr int P = D::P, NB = D::NB, CB = D::CB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* buf = reinterpret_cast<bf16*>(smem_raw);  // [2][CB][YS][ZP]
+  bf16* osm0 = buf + 2 * D::BUF;                  // [2][CB][YT][ZT]
+  bf16* panel = osm0 + 2 * D::OUT;                // [2 copies][COPY]
+  Item* raw0 = reinterpret_cast<Item*>(panel + 2 * D::COPY);  // [DEPTH][ITEMS][THREADS]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int cl = warp % CB, wy = warp / CB;  // the warp's channel of the block, its 32 rows
+
+  // block: (batch, x range, y block, z block, channel group), channels fastest
+  int r = blockIdx.x;
+  const int ncg = C / CB, nzb = (Z + BG_ZT - 1) / BG_ZT, nyb = (Y + D::YT - 1) / D::YT;
+  const int cg = r % ncg;
+  r /= ncg;
+  const int zb = r % nzb;
+  r /= nzb;
+  const int yb = r % nyb;
+  r /= nyb;
+  const int xsp = r % nxs, bi = r / nxs;
+  const int c0 = cg * CB, z0 = zb * BG_ZT, y0 = yb * D::YT;
+  const int xs = xsp * xt, xe = min(X, xs + xt);
+
+  // the weight panel, both copies (copy 1 element e + 1 = copy 0 element e)
+  for (int e = tid; e < D::ROWS * BG_ROW; e += BG_THREADS) {
+    const int rho = e / BG_ROW, m = e % BG_ROW;
+    const bf16 v = __float2bfloat16_rn(big_tap<K>(w, C, c0, rho, m) +
+                                       big_tap<K>(w, C, c0, rho - 1, m + BG_ROW));
+    panel[e] = v;
+    panel[D::COPY + e + 1] = v;
+  }
+  const float bias = b[c0 + cl];
+  // the lane's pair T[2q, 2q + 1][g] of its channel's first row: element
+  // 2q - g + 8, aligned in copy g & 1
+  const bf16* wl = panel + ((g & 1) ? D::COPY + 1 : 0) + 2 * q - g + 8 +
+                   cl * (K * K * NB * BG_ROW);
+
+  // staging: item i is window row i / ZW (y0 - P + row) and column i % ZW
+  // (z0 - P + column) of every x plane, CB channels of one voxel; each
+  // thread copies its items of plane xi + AHEAD into the ring and later
+  // transposes the same items, so the ring needs no barrier
+  const long long plane_stride = (long long)Y * Z * C;
+  const int nsteps = xe - xs + K - 1;
+  const bf16* src[D::ITEMS];
+  bool ok[D::ITEMS];
+  int dst_off[D::ITEMS];
+#pragma unroll
+  for (int j = 0; j < D::ITEMS; ++j) {
+    const int i = tid + j * BG_THREADS;
+    const int gy = y0 - P + i / D::ZW, gz = z0 - P + i % D::ZW;
+    ok[j] = i < D::NITEM && gy >= 0 && gy < Y && gz >= 0 && gz < Z;
+    src[j] = x + (((long long)bi * X + xs - P) * Y * Z + (long long)gy * Z + gz) * C + c0;
+    dst_off[j] = i < D::NITEM ? (i / D::ZW) * BG_ZP + i % D::ZW : -1;
+  }
+  auto fetch = [&](int xi, int t) {
+    Item* raw = raw0 + (t % BG_DEPTH) * D::ITEMS * BG_THREADS + tid;
+    const bool in = t < nsteps && xi >= 0 && xi < X;
+#pragma unroll
+    for (int j = 0; j < D::ITEMS; ++j) {
+      if (in && ok[j]) I::copy(raw + j * BG_THREADS, src[j]);
+      src[j] += plane_stride;
+    }
+    cp_async_commit();
+  };
+  auto stage = [&](int xi, int t, bf16* dst) {
+    const Item* raw = raw0 + (t % BG_DEPTH) * D::ITEMS * BG_THREADS + tid;
+    const bool in = xi >= 0 && xi < X;
+    unsigned short* d0 = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+    for (int j = 0; j < D::ITEMS; ++j) {
+      if (dst_off[j] < 0) continue;
+      Item v = {};
+      if (in && ok[j]) v = raw[j * BG_THREADS];
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(&v);
+#pragma unroll
+      for (int ch = 0; ch < CB; ++ch) d0[ch * D::PLANE + dst_off[j]] = h[ch];
+    }
+  };
+  // the thread's output voxels (y, z) = (v / 8, v % 8), v = tid + 256 o
+  bf16* dst_out[D::OV];
+  bool o_ok[D::OV];
+#pragma unroll
+  for (int o = 0; o < D::OV; ++o) {
+    const int v = tid + o * BG_THREADS, oy = y0 + v / BG_ZT, oz = z0 + v % BG_ZT;
+    o_ok[o] = oy < Y && oz < Z;
+    dst_out[o] = out + ((((long long)bi * X + xs) * Y + oy) * Z + oz) * C + c0;
+  }
+
+  // acc[s]: the output plane xo with (xo - xs) mod K == s (see
+  // dwconv3d_tc_kernel); [m16 tile][fragment]
+  float acc[K][BG_MT][4];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+#pragma unroll
+    for (int m = 0; m < BG_MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[s][m][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < BG_AHEAD; ++t) fetch(xs - P + t, t);
+  cp_async_wait_group<BG_AHEAD - 1>();
+  stage(xs - P, 0, buf);
+  __syncthreads();
+  for (int t0 = 0; t0 < nsteps; t0 += K) {
+#pragma unroll
+    for (int rr = 0; rr < K; ++rr) {
+      const int t = t0 + rr;
+      if (t >= nsteps) break;
+      const int xi = xs - P + t;
+      bf16* osm = osm0 + (t & 1) * D::OUT;
+      fetch(xi + BG_AHEAD, t + BG_AHEAD);
+      if (xi >= 0 && xi < X) {
+        const bf16* pl = buf + (t & 1) * D::BUF + cl * D::PLANE +
+                         (wy * 16 * BG_MT + (lane & 15)) * BG_ZP + (lane >> 4) * 8;
+#pragma unroll 1
+        for (int dy = 0; dy < K; ++dy) {
+          uint32_t a[BG_MT][NB][4];
+#pragma unroll
+          for (int m = 0; m < BG_MT; ++m)
+#pragma unroll
+            for (int band = 0; band < NB; ++band)
+              ldmatrix_x4(a[m][band], pl + (dy + 16 * m) * BG_ZP + 8 * band);
+          const bf16* wd = wl + dy * NB * BG_ROW;
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) {
+#pragma unroll
+            for (int band = 0; band < NB; ++band) {
+              const bf16* wb = wd + (dx * K * NB + band) * BG_ROW;
+              const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wb);
+              const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wb + 8);
+#pragma unroll
+              for (int m = 0; m < BG_MT; ++m)
+                mma_bf16_16816(acc[(rr - dx + K) % K][m], a[m][band], b0, b1);
+            }
+          }
+        }
+      }
+      // output plane xo = xi - P is complete: + bias, one rounding
+      float(&done)[BG_MT][4] = acc[(rr + 1) % K];
+      const int xo = xi - P;
+      if (xo >= xs) {
+        bf16* o = osm + cl * D::YT * BG_ZT;
+#pragma unroll
+        for (int m = 0; m < BG_MT; ++m) {
+          const int row = wy * 16 * BG_MT + 16 * m + g;
+          *reinterpret_cast<uint32_t*>(o + row * BG_ZT + 2 * q) =
+              pack_bf16x2(done[m][0] + bias, done[m][1] + bias);
+          *reinterpret_cast<uint32_t*>(o + (row + 8) * BG_ZT + 2 * q) =
+              pack_bf16x2(done[m][2] + bias, done[m][3] + bias);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < BG_MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) done[m][e] = 0.f;
+      cp_async_wait_group<BG_AHEAD - 1>();  // this thread's copies of plane xi + 1
+      stage(xi + 1, t + 1, buf + ((t + 1) & 1) * D::BUF);
+      // one barrier a step (see dwconv3d_tc_kernel)
+      __syncthreads();
+      // CB-channel groups of the output plane, a voxel a thread at a time
+      if (xo >= xs) {
+        const unsigned short* os = reinterpret_cast<const unsigned short*>(osm);
+#pragma unroll
+        for (int o = 0; o < D::OV; ++o) {
+          if (o_ok[o]) {
+            Item v;
+            unsigned short* e = reinterpret_cast<unsigned short*>(&v);
+#pragma unroll
+            for (int ch = 0; ch < CB; ++ch)
+              e[ch] = os[ch * D::YT * BG_ZT + tid + o * BG_THREADS];
+            *reinterpret_cast<Item*>(dst_out[o]) = v;
+          }
+          dst_out[o] += plane_stride;
+        }
+      }
+    }
+  }
+}
+
+template <int K>
+int launch_big(const void* x, const float* w, const float* b, void* out, int B, int X, int Y,
+               int Z, int C, cudaStream_t stream) {
+  using D = DwBig<K>;
+  cudaError_t e = cudaFuncSetAttribute(dwconv3d_big_kernel<K>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  // X split: one block an SM (the shared memory allows no second), so the
+  // blocks a wave are the SMs (filling the panel is the prologue); ranges of
+  // at least 8 planes but the last
+  const long long base = (long long)B * ((Y + D::YT - 1) / D::YT) *
+                         ((Z + BG_ZT - 1) / BG_ZT) * (C / D::CB);
+  XSplit s;
+  if (!split_x(base, X, sms, K, 8, &s)) return (int)cudaErrorInvalidValue;
+  dwconv3d_big_kernel<K><<<(unsigned)s.units, BG_THREADS, D::SMEM, stream>>>(
+      static_cast<const bf16*>(x), w, b, static_cast<bf16*>(out), X, Y, Z, C, s.nxs, s.xt);
+  return (int)cudaGetLastError();
+}
+
 // ---- any other odd k: a thread an output value ---------------------------------
 //
 // JAX's schema takes any odd KERNEL_SIZE >= 3; the depthwise kernels above
-// instantiate 3, 5 and 7, the stems' GEMMs take bf16 stems to k = 15. Every
-// other odd k runs `dwconv3d_any_kernel`: k a
+// instantiate 3 to 15 (bf16 16-byte channel groups past 7), the stems' GEMMs
+// take bf16 stems to k = 15. Every other case of an odd k > 7 (f32, bf16
+// without 16-byte channel groups, k > 15) runs `dwconv3d_any_kernel`: k a
 // run-time value, one thread an output value (channels fastest, so a warp
 // reads neighbouring channels of one voxel), its k^3 taps read through the
 // cache and summed in f32 in (dx, dy, dz) order, the bias added in f32 and
@@ -866,16 +1181,19 @@ int launch_any(int k, const void* x, const float* w, const float* b, void* out, 
 // 0, 8 <= C <= 256 and k <= 15 runs a stem GEMM on the tensor cores (the 32-
 // channel templates at k = 3, 5, 7); every other k = 3, 5, 7 runs `launch`
 // above (the depthwise tensor-core kernel for 16-byte-aligned bf16 channel
-// groups, else the FP32 kernel: the name given is for aligned operands);
-// every other odd k the run-time-k kernel.
-enum Route { R_NONE, R_STEM32, R_STEM_CHUNK, R_TC, R_FP32, R_ANY };
+// groups, else the FP32 kernel: the name given is for aligned operands); a
+// bf16 depthwise layer with C % 8 == 0 at k = 9 to 15 `dwconv3d_big_kernel`
+// (16-byte-aligned operands, else the launch raises); every other odd k the
+// run-time-k kernel.
+enum Route { R_NONE, R_STEM32, R_STEM_CHUNK, R_TC, R_FP32, R_BIG, R_ANY };
 
 Route route(int dtype, long long x_cstride, int C, int k) {
   if (k < 3 || k % 2 == 0 || C < 1 || (dtype != SKOOTS_BF16 && dtype != SKOOTS_F32))
     return R_NONE;
   if (dtype == SKOOTS_BF16 && x_cstride == 0 && C % 8 == 0 && C >= 8 && C <= 256 && k <= 15)
     return C == SG_C && k <= 7 ? R_STEM32 : R_STEM_CHUNK;
-  if (k > 7) return R_ANY;
+  if (k > 7)
+    return dtype == SKOOTS_BF16 && x_cstride == 1 && C % 8 == 0 && k <= 15 ? R_BIG : R_ANY;
   return dtype == SKOOTS_BF16 && x_cstride == 1 && C % TC_WARPS == 0 ? R_TC : R_FP32;
 }
 
@@ -895,6 +1213,8 @@ const char* route_name(Route r, int dtype, int C, int k) {
   static const char* const fp32[2][3] = {
       {"dwconv3d_kernel<float,3>", "dwconv3d_kernel<float,5>", "dwconv3d_kernel<float,7>"},
       {"dwconv3d_kernel<bf16,3>", "dwconv3d_kernel<bf16,5>", "dwconv3d_kernel<bf16,7>"}};
+  static const char* const big[] = {"dwconv3d_big_kernel<9>", "dwconv3d_big_kernel<11>",
+                                    "dwconv3d_big_kernel<13>", "dwconv3d_big_kernel<15>"};
   static const char* const any[2] = {"dwconv3d_any_kernel<float>", "dwconv3d_any_kernel<bf16>"};
   const int ki = (k - 3) / 2;
   switch (r) {
@@ -914,6 +1234,7 @@ const char* route_name(Route r, int dtype, int C, int k) {
     }
     case R_TC: return tc[ki];
     case R_FP32: return fp32[dtype == SKOOTS_BF16][ki];
+    case R_BIG: return big[ki - 3];
     case R_ANY: return any[dtype == SKOOTS_BF16];
     default: return nullptr;
   }
@@ -943,6 +1264,18 @@ int dispatch(Route r, int k, const void* x, const float* w, const float* b, void
       case 11: return launch_stem_chunk<11>(x, w, b, out, B, X, Y, Z, C, s);
       case 13: return launch_stem_chunk<13>(x, w, b, out, B, X, Y, Z, C, s);
       default: return launch_stem_chunk<15>(x, w, b, out, B, X, Y, Z, C, s);
+    }
+  }
+  if (r == R_BIG) {
+    // 16-byte channel groups of x and out, or no launch
+    if (x_vstride != C || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    switch (k) {
+      case 9: return launch_big<9>(x, w, b, out, B, X, Y, Z, C, s);
+      case 11: return launch_big<11>(x, w, b, out, B, X, Y, Z, C, s);
+      case 13: return launch_big<13>(x, w, b, out, B, X, Y, Z, C, s);
+      default: return launch_big<15>(x, w, b, out, B, X, Y, Z, C, s);
     }
   }
   if (r == R_ANY) return launch_any<T>(k, x, w, b, out, B, X, Y, Z, C, x_vstride, x_cstride, s);
@@ -975,8 +1308,8 @@ extern "C" int skoots_dwconv3d(int dtype, const void* x, const void* w,
 
 // The kernel skoots_dwconv3d takes at (dtype, x_cstride, C, k) for
 // contiguous 16-byte-aligned operands, by name ("stem_gemm_chunk_kernel<9,2>",
-// "dwconv3d_tc_kernel<7>", "dwconv3d_any_kernel<bf16>", ...), or null where
-// it refuses them. A pure function of its integers.
+// "dwconv3d_tc_kernel<7>", "dwconv3d_big_kernel<11>", "dwconv3d_any_kernel<bf16>",
+// ...), or null where it refuses them. A pure function of its integers.
 extern "C" const char* skoots_dwconv3d_route(int dtype, int x_cstride, int C, int k) {
   return route_name(route(dtype, x_cstride, C, k), dtype, C, k);
 }

@@ -51,8 +51,13 @@
 // (dx, dy) items (below; tests/test_torch_stem_gemm.py states it). `route`
 // is the one choice of kernel, shared with `skoots_dwconv3d_wgrad_route`.
 //
-// Any other odd k (`dwconv3d_wgrad_any_kernel`): a thread a weight-gradient
-// entry of a partial row, below.
+// bf16 depthwise layers with 16-byte channel groups at k = 9, 11, 13, 15
+// (`dwconv3d_wgrad_big_kernel`): the transposed band in one or two bands,
+// the (dx, dy) sums of a channel split into dy groups, below.
+//
+// Any other odd k (`dwconv3d_wgrad_any_kernel`: f32, bf16 without 16-byte
+// channel groups, k > 15): a thread a weight-gradient entry of a partial
+// row, below.
 //
 // f32, and bf16 without 16-byte channel groups (`dwconv3d_wgrad_kernel`):
 // FP32 FMAs. The tensor cores would round f32 operands to TF32, which is
@@ -398,6 +403,226 @@ dwconv3d_wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   }
 }
 
+// ---- bf16 depthwise layers at k = 9, 11, 13, 15 on the tensor cores ---------
+//
+// `dwconv3d_wgrad_big_kernel<K>`: dwconv3d_wgrad_tc_kernel's transposed band
+// (E = A^T G per (dx, dy) and plane, M = 16 window z, N = 8 z, K = 16 y rows;
+// dw[dx, dy, dz] the dz-th diagonal of E) past k = 7, where:
+//  * a 16-row window holds the diagonals dz <= 8 only (j + dz <= 15 for
+//    j < 8), so k = 11 to 15 take two bands as the forward does: band 0
+//    over the window z0 - P ... z0 - P + 15 gives dz 0-7, band 1 over the
+//    window from z0 - P + 8 gives dz 8 ... k - 1 (its diagonal dz - 8);
+//    both products share the cotangent fragment, and a staged row holds 24
+//    window columns;
+//  * a warp's k^2 x bands sums no longer fit its registers (k = 9: 324
+//    f32), so the dy of a channel split into groups of DG (3 at k = 9, 1
+//    above: the k dx x DG x bands x 4 f32 sums, at most 120), a grid axis;
+//    a block streams only its group's DG + 15 input rows, and each A
+//    fragment still feeds the k dx products (the cotangent planes' ring of
+//    k fragment pairs, as in dwconv3d_wgrad_tc_kernel).
+// Every (channel group, dy group) block of one slot walks the same units in
+// the same order and writes its own taps of its channels to the slot's
+// partial row, so each row is written whole and once, and
+// wgrad_reduce_kernel adds the rows in its fixed order: the same result
+// every run. tests/test_torch_dwconv_bigk.py states this indexing in torch.
+template <int K>
+struct WgBig {
+  static constexpr int P = K / 2;
+  static constexpr int NB = K <= 9 ? 1 : 2;       // bands
+  static constexpr int DG = K == 9 ? 3 : 1;       // dy of a group
+  static constexpr int NGR = K / DG;              // dy groups
+  static constexpr int ZW = 8 + 8 * NB;           // staged window columns
+  static constexpr int YS = WT_YT + DG - 1;       // staged input rows
+  static constexpr int PLANE = YS * WT_ZP;
+  static constexpr int BUF = WT_WARPS * PLANE;
+  static constexpr int GPLANE = WT_YT * WT_ZT;
+  static constexpr int GBUF = WT_WARPS * GPLANE;
+  static constexpr int NITEM = YS * ZW;
+  static constexpr int ITEMS = (NITEM + WT_THREADS - 1) / WT_THREADS;
+  static constexpr int RAW_ROWS = ITEMS + 1;      // + one cotangent item (threads < 128)
+  static constexpr int SMEM = (2 * BUF + 2 * GBUF) * 2 +
+                              WT_DEPTH * RAW_ROWS * WT_THREADS * 16 +
+                              WT_WARPS * WT_ZW * WT_ZT * 4;
+};
+
+template <int K>
+__global__ void __launch_bounds__(WT_THREADS, 1)
+dwconv3d_wgrad_big_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                          float* __restrict__ partial, int X, int Y, int Z, int C, int nxs,
+                          int xt, int units, int nper) {
+  using W = WgBig<K>;
+  constexpr int P = W::P, NB = W::NB, DG = W::DG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* buf = reinterpret_cast<bf16*>(smem_raw);  // [2][8 ch][YS][ZP]
+  bf16* gbuf = buf + 2 * W::BUF;                  // [2][8 ch][YT][ZT]
+  uint4* raw0 = reinterpret_cast<uint4*>(gbuf + 2 * W::GBUF);  // [DEPTH][RAW_ROWS][THREADS]
+  float* diag = reinterpret_cast<float*>(raw0 + WT_DEPTH * W::RAW_ROWS * WT_THREADS);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // block: (channel group, dy group, slot), channel groups fastest
+  const int ncg = C / WT_WARPS;
+  const int cg = blockIdx.x % ncg, rest = blockIdx.x / ncg;
+  const int grp = rest % W::NGR, slot = rest / W::NGR;
+  const int c0 = cg * WT_WARPS, dy0 = grp * DG;
+  const int nzb = (Z + WT_ZT - 1) / WT_ZT, nyb = (Y + WT_YT - 1) / WT_YT;
+  const long long plane = (long long)Y * Z * C;
+  // ldmatrix.trans lanes, as dwconv3d_wgrad_tc_kernel's
+  const int a_off = warp * W::PLANE + ((lane & 7) + ((lane >> 4) << 3)) * WT_ZP +
+                    ((lane >> 3) & 1) * 8;
+  const int g_off = warp * W::GPLANE + (lane & 15) * WT_ZT;
+
+  // acc[dx][dy - dy0][band]: E over every unit of the block
+  float acc[K][DG][NB][4];
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+    for (int d = 0; d < DG; ++d)
+#pragma unroll
+      for (int bd = 0; bd < NB; ++bd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dx][d][bd][e] = 0.f;
+
+  for (int u = slot; u < units; u += nper) {
+    int r = u;
+    const int zb = r % nzb;
+    r /= nzb;
+    const int yb = r % nyb;
+    r /= nyb;
+    const int xsp = r % nxs, bi = r / nxs;
+    const int z0 = zb * WT_ZT, y0 = yb * WT_YT;
+    const int xs = xsp * xt;
+    const int ng = min(X, xs + xt) - xs;  // cotangent planes xs ... xs + ng - 1
+    const int nsteps = ng + K - 1;        // input planes xs - P ... xs + ng - 1 + P
+    // the thread's input items: window row i / ZW (y0 - P + dy0 + row) and
+    // column i % ZW (z0 - P + column), 8 channels of one voxel; -1 outside
+    // the volume (staged as zeros) or past the window
+    long long off[W::ITEMS];
+    int dst[W::ITEMS];
+#pragma unroll
+    for (int j = 0; j < W::ITEMS; ++j) {
+      const int i = tid + j * WT_THREADS;
+      const int gy = y0 - P + dy0 + i / W::ZW, gz = z0 - P + i % W::ZW;
+      const bool in = i < W::NITEM;
+      off[j] = in && gy >= 0 && gy < Y && gz >= 0 && gz < Z
+                   ? ((long long)gy * Z + gz) * C + c0 : -1;
+      dst[j] = in ? (i / W::ZW) * WT_ZP + i % W::ZW : -1;
+    }
+    // the thread's cotangent item (threads < 128): row tid / 8, z tid % 8
+    const int gy = y0 + tid / WT_ZT, gz = z0 + tid % WT_ZT;
+    const long long goff =
+        tid < WT_YT * WT_ZT && gy < Y && gz < Z ? ((long long)gy * Z + gz) * C + c0 : -1;
+    const bf16* xb = x + (long long)bi * X * plane;
+    const bf16* gb = g + (long long)bi * X * plane;
+
+    // step t: input plane xs - P + t and cotangent plane xs + t into ring
+    // slot t % DEPTH; one commit group a step
+    auto fetch = [&](int t) {
+      uint4* raw = raw0 + (t % WT_DEPTH) * W::RAW_ROWS * WT_THREADS + tid;
+      const int xi = xs - P + t;
+      if (t < nsteps && xi >= 0 && xi < X) {
+        const bf16* src = xb + xi * plane;
+#pragma unroll
+        for (int j = 0; j < W::ITEMS; ++j)
+          if (off[j] >= 0) cp_async16(raw + j * WT_THREADS, src + off[j], 16);
+      }
+      if (t < ng && goff >= 0)
+        cp_async16(raw + W::ITEMS * WT_THREADS, gb + (xs + t) * plane + goff, 16);
+      cp_async_commit();
+    };
+    // step t's planes, landed, into the channel planes of buffer t & 1
+    auto stage = [&](int t) {
+      const uint4* raw = raw0 + (t % WT_DEPTH) * W::RAW_ROWS * WT_THREADS + tid;
+      const int xi = xs - P + t;
+      const bool in = xi >= 0 && xi < X;
+      unsigned short* d0 = reinterpret_cast<unsigned short*>(buf + (t & 1) * W::BUF);
+#pragma unroll
+      for (int j = 0; j < W::ITEMS; ++j) {
+        if (dst[j] < 0) continue;
+        const uint4 v = in && off[j] >= 0 ? raw[j * WT_THREADS] : make_uint4(0, 0, 0, 0);
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(&v);
+#pragma unroll
+        for (int ch = 0; ch < WT_WARPS; ++ch) d0[ch * W::PLANE + dst[j]] = h[ch];
+      }
+      if (tid < WT_YT * WT_ZT) {
+        const uint4 v = t < ng && goff >= 0 ? raw[W::ITEMS * WT_THREADS] : make_uint4(0, 0, 0, 0);
+        const unsigned short* h = reinterpret_cast<const unsigned short*>(&v);
+        unsigned short* gd = reinterpret_cast<unsigned short*>(gbuf + (t & 1) * W::GBUF) + tid;
+#pragma unroll
+        for (int ch = 0; ch < WT_WARPS; ++ch) gd[ch * W::GPLANE] = h[ch];
+      }
+    };
+
+    // gfr[s]: the G fragments of cotangent plane xs + t with t % K == s;
+    // step t pairs input plane xs - P + t with cotangent plane xs + t - dx
+    uint32_t gfr[K][2];
+#pragma unroll
+    for (int s = 0; s < K; ++s) gfr[s][0] = gfr[s][1] = 0u;
+#pragma unroll
+    for (int t = 0; t < WT_AHEAD; ++t) fetch(t);
+    cp_async_wait_group<WT_AHEAD - 1>();
+    stage(0);
+    __syncthreads();
+    for (int t0 = 0; t0 < nsteps; t0 += K) {
+#pragma unroll
+      for (int rr = 0; rr < K; ++rr) {
+        const int t = t0 + rr;
+        if (t >= nsteps) break;
+        fetch(t + WT_AHEAD);
+        const int xi = xs - P + t;
+        if (t < ng) ldmatrix_x2_trans(gfr[rr], gbuf + (t & 1) * W::GBUF + g_off);
+        if (xi >= 0 && xi < X) {
+          const bf16* pl = buf + (t & 1) * W::BUF + a_off;
+#pragma unroll
+          for (int d = 0; d < DG; ++d) {
+            uint32_t a[NB][4];
+#pragma unroll
+            for (int bd = 0; bd < NB; ++bd) ldmatrix_x4_trans(a[bd], pl + d * WT_ZP + 8 * bd);
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx) {
+              const int tg = t - dx;  // cotangent plane xs + tg
+              if (tg >= 0 && tg < ng)
+#pragma unroll
+                for (int bd = 0; bd < NB; ++bd)
+                  mma_bf16_16816(acc[dx][d][bd], a[bd], gfr[(rr - dx + K) % K][0],
+                                 gfr[(rr - dx + K) % K][1]);
+            }
+          }
+        }
+        cp_async_wait_group<WT_AHEAD - 1>();  // this thread's copies of step t + 1
+        stage(t + 1);
+        // one barrier a step: step t + 1 is staged, and every warp is done
+        // with the buffers of step t - 1, which this step's stage overwrote
+        __syncthreads();
+      }
+    }
+  }
+
+  // dw[dx, dy, 8 band + i] = sum_j E_band[j + i][j]: the fragment through
+  // shared memory, lane i adding its diagonal in the order j = 0, 1, ...
+  const int gq = lane >> 2, q = lane & 3;
+  float* dg = diag + warp * WT_ZW * WT_ZT;
+  float* row = partial + (long long)slot * (K * K * K) * C + c0 + warp;
+#pragma unroll
+  for (int dx = 0; dx < K; ++dx)
+#pragma unroll
+    for (int d = 0; d < DG; ++d)
+#pragma unroll
+      for (int bd = 0; bd < NB; ++bd) {
+        dg[gq * WT_ZT + 2 * q] = acc[dx][d][bd][0];
+        dg[gq * WT_ZT + 2 * q + 1] = acc[dx][d][bd][1];
+        dg[(gq + 8) * WT_ZT + 2 * q] = acc[dx][d][bd][2];
+        dg[(gq + 8) * WT_ZT + 2 * q + 1] = acc[dx][d][bd][3];
+        __syncwarp();
+        const int nd = NB == 1 ? K : (bd == 0 ? 8 : K - 8);  // the band's taps
+        if (lane < nd) {
+          float s = 0.f;
+#pragma unroll
+          for (int j = 0; j < WT_ZT; ++j) s += dg[(j + lane) * WT_ZT + j];
+          row[(long long)((dx * K + dy0 + d) * K + 8 * bd + lane) * C] = s;
+        }
+        __syncwarp();
+      }
+}
+
 // ---- the bf16 stem (1 -> 32) as an implicit GEMM on the tensor cores ----------
 
 constexpr int SW_C = 32;         // output channels (the mma's N: 4 tiles of 8)
@@ -691,7 +916,9 @@ stem_wgrad_chunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 
 // ---- launch plans ---------------------------------------------------------------
 
-enum Path { FP32 = 0, DEPTHWISE_TC = 1, STEM_TC = 2, ANY_K = 3, STEM_CHUNK = 4 };
+enum Path {
+  FP32 = 0, DEPTHWISE_TC = 1, STEM_TC = 2, ANY_K = 3, STEM_CHUNK = 4, DEPTHWISE_BIG = 5
+};
 
 // what a call launches, from make_plan; the caller keeps it as int32
 // [PLAN_INTS] (skoots_dwconv3d_wgrad_plan) and hands it to every launch at
@@ -700,12 +927,13 @@ struct Plan {
   int path = FP32;
   int rows = 0;   // rows of the partial buffer (= blocks, or tiles of the FP32 kernel)
   int grid = 0;
-  int nxs = 1, xt = 1, units = 0, nper = 0;  // the depthwise tensor-core kernel
+  int nxs = 1, xt = 1, units = 0, nper = 0;  // the depthwise tensor-core kernels
                                              // (ANY_K: xt (b, x) planes a row)
   int smem = 0;
   int chunk = 0, stride = 0, ngr = 0, copy = 0;  // STEM_CHUNK: channels a block,
                                                  // their row stride, item groups,
-                                                 // one halo copy (elements)
+                                                 // one halo copy (elements);
+                                                 // DEPTHWISE_BIG: ngr dy groups
 };
 constexpr int PLAN_INTS = 12;
 static_assert(sizeof(Plan) == PLAN_INTS * sizeof(int), "Plan is PLAN_INTS ints");
@@ -741,15 +969,19 @@ cudaError_t occupancy(Kernel kernel, int threads, int smem, int* sms, int* per_s
 // GEMM on the tensor cores (the 32-channel templates at k = 3, 5, 7); every
 // other k = 3, 5, 7 the depthwise tensor-core kernel (bf16 16-byte channel
 // groups, aligned, Y Z C < 2^31: the name given is for such operands) or the
-// FP32 kernel; every other odd k the run-time-k kernel.
-enum Route { R_NONE, R_STEM32, R_STEM_CHUNK, R_TC, R_FP32, R_ANY };
+// FP32 kernel; a bf16 depthwise layer with C % 8 == 0 at k = 9 to 15
+// `dwconv3d_wgrad_big_kernel` (16-byte-aligned operands, else the plan
+// raises); every other odd k the run-time-k kernel.
+enum Route { R_NONE, R_STEM32, R_STEM_CHUNK, R_TC, R_FP32, R_BIG, R_ANY };
 
 Route route(int dtype, long long x_cstride, int C, int k) {
   if (k < 3 || k % 2 == 0 || C < 1 || (dtype != SKOOTS_BF16 && dtype != SKOOTS_F32))
     return R_NONE;
   if (dtype == SKOOTS_BF16 && x_cstride == 0 && C % 8 == 0 && C >= 8 && C <= 256 && k <= 15)
     return C == SW_C && k <= 7 ? R_STEM32 : R_STEM_CHUNK;
-  if (k > 7) return R_ANY;
+  if (k > 7)
+    return dtype == SKOOTS_BF16 && x_cstride == 1 && C % WT_WARPS == 0 && k <= 15 ? R_BIG
+                                                                                   : R_ANY;
   return dtype == SKOOTS_BF16 && x_cstride == 1 && C % WT_WARPS == 0 ? R_TC : R_FP32;
 }
 
@@ -775,6 +1007,9 @@ const char* route_name(Route r, int dtype, int C, int k) {
        "dwconv3d_wgrad_kernel<float,7>"},
       {"dwconv3d_wgrad_kernel<bf16,3>", "dwconv3d_wgrad_kernel<bf16,5>",
        "dwconv3d_wgrad_kernel<bf16,7>"}};
+  static const char* const big[] = {"dwconv3d_wgrad_big_kernel<9>", "dwconv3d_wgrad_big_kernel<11>",
+                                    "dwconv3d_wgrad_big_kernel<13>",
+                                    "dwconv3d_wgrad_big_kernel<15>"};
   static const char* const any[2] = {"dwconv3d_wgrad_any_kernel<float>",
                                      "dwconv3d_wgrad_any_kernel<bf16>"};
   const int ki = (k - 3) / 2;
@@ -786,6 +1021,7 @@ const char* route_name(Route r, int dtype, int C, int k) {
     }
     case R_TC: return tc[ki];
     case R_FP32: return fp32[dtype == SKOOTS_BF16][ki];
+    case R_BIG: return big[ki - 3];
     case R_ANY: return any[dtype == SKOOTS_BF16];
     default: return nullptr;
   }
@@ -841,6 +1077,66 @@ cudaError_t make_plan_stem_chunk(int B, int X, int Y, int Z, int C, int k, Plan*
   return cudaSuccess;
 }
 
+// The units of the depthwise tensor-core kernels: `target` blocks a
+// (channel group[, dy group]) and common.cuh::split_x's X split (a unit of
+// xt cotangent planes); into p's nxs, xt, units, nper. False where no split
+// keeps the units under 2^31.
+bool split_units(long long cols, int X, long long target, int k, Plan& p) {
+  XSplit s;
+  if (!split_x(cols, X, target, k, 1, &s)) return false;
+  p.nxs = s.nxs;
+  p.xt = s.xt;
+  p.units = (int)s.units;
+  p.nper = (int)((s.units + s.per_block - 1) / s.per_block);
+  return true;
+}
+
+// the plan of dwconv3d_wgrad_big_kernel<K>: blocks a (channel group, dy
+// group) one wave of the card
+template <int K>
+cudaError_t make_plan_big(int B, int X, int Y, int Z, int C, Plan* plan) {
+  using W = WgBig<K>;
+  Plan p;
+  p.path = DEPTHWISE_BIG;
+  p.smem = W::SMEM;
+  p.ngr = W::NGR;
+  int sms = 0, per_sm = 0;
+  const cudaError_t e = occupancy<DEPTHWISE_BIG * 16 + K>(dwconv3d_wgrad_big_kernel<K>,
+                                                          WT_THREADS, p.smem, &sms, &per_sm);
+  if (e != cudaSuccess) return e;
+  const long long groups = (long long)(C / WT_WARPS) * W::NGR;
+  const long long target_ll = (long long)sms * per_sm / groups;
+  const long long target = target_ll < 1 ? 1 : target_ll;
+  const long long cols = (long long)B * ((Y + WT_YT - 1) / WT_YT) * ((Z + WT_ZT - 1) / WT_ZT);
+  if (!split_units(cols, X, target, K, p)) return cudaErrorInvalidValue;
+  p.rows = p.nper;
+  p.grid = (int)(groups * p.nper);
+  *plan = p;
+  return cudaSuccess;
+}
+
+template <int K>
+int launch_big(const void* x, const void* g, float* partial, float* out, int X, int Y, int Z,
+               int C, const Plan& p, cudaStream_t stream) {
+  if (p.rows > 0) {
+    dwconv3d_wgrad_big_kernel<K><<<p.grid, WT_THREADS, p.smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(g), partial, X, Y, Z, C, p.nxs,
+        p.xt, p.units, p.nper);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int n = K * K * K * C;
+  wgrad_reduce_kernel<<<(n + RED_COLS - 1) / RED_COLS, RED_ROWS * RED_COLS, 0, stream>>>(
+      partial, out, p.rows, n);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte channel groups of x and g (the big kernels' operands)
+bool big_operands(const void* x, const void* g, int C, long long x_vstride) {
+  return x_vstride == C && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(g) % 16 == 0;
+}
+
 template <typename T, int K>
 cudaError_t make_plan(const void* x, const void* g, int B, int X, int Y, int Z, int C,
                       long long x_vstride, long long x_cstride, Plan* plan) {
@@ -871,31 +1167,13 @@ cudaError_t make_plan(const void* x, const void* g, int B, int X, int Y, int Z, 
     e = occupancy<DEPTHWISE_TC * 16 + K>(dwconv3d_wgrad_tc_kernel<K>, WT_THREADS, p.smem, &sms,
                                          &per_sm);
     if (e != cudaSuccess) return e;
-    // blocks a channel group: one wave of the card; then the x range whose
-    // units, dealt round-robin to those blocks, finish soonest (a unit of
-    // xt cotangent planes costs xt + k - 1 input planes and a short
-    // prologue)
+    // blocks a channel group: one wave of the card
     const int ncg = C / WT_WARPS;
     const long long target_ll = (long long)sms * per_sm / ncg;
     const long long target = target_ll < 1 ? 1 : target_ll;
     const long long cols =
         (long long)B * ((Y + WT_YT - 1) / WT_YT) * ((Z + WT_ZT - 1) / WT_ZT);
-    long long best = -1;
-    for (int nxs = 1; nxs <= X; ++nxs) {
-      const int xt = (X + nxs - 1) / nxs;
-      if ((X + xt - 1) / xt != nxs) continue;
-      const long long units = cols * nxs;
-      if (units > 0x7fffffffLL) break;
-      const long long per_block = (units + target - 1) / target;
-      const long long cost = per_block * (xt + K - 1 + 2);
-      if (best < 0 || cost < best) {
-        best = cost;
-        p.nxs = nxs;
-        p.xt = xt;
-        p.units = (int)units;
-        p.nper = (int)((units + per_block - 1) / per_block);
-      }
-    }
+    split_units(cols, X, target, K, p);
     p.rows = p.nper;
     p.grid = ncg * p.nper;
   } else {
@@ -1059,6 +1337,17 @@ int dispatch_launch(int k, const void* x, const void* g, float* partial, float* 
       return (int)cudaErrorInvalidValue;
     return launch_stem_chunk(k, x, g, partial, out, B, X, Y, Z, C, p, s);
   }
+  if (p.path == DEPTHWISE_BIG) {
+    if (route(sizeof(T) == 2 ? SKOOTS_BF16 : SKOOTS_F32, x_cstride, C, k) != R_BIG ||
+        !big_operands(x, g, C, x_vstride) || p.ngr != (k == 9 ? 3 : k))
+      return (int)cudaErrorInvalidValue;
+    switch (k) {
+      case 9: return launch_big<9>(x, g, partial, out, X, Y, Z, C, p, s);
+      case 11: return launch_big<11>(x, g, partial, out, X, Y, Z, C, p, s);
+      case 13: return launch_big<13>(x, g, partial, out, X, Y, Z, C, p, s);
+      default: return launch_big<15>(x, g, partial, out, X, Y, Z, C, p, s);
+    }
+  }
   if (p.path == ANY_K)
     return launch_any<T>(k, x, g, partial, out, B, X, Y, Z, C, x_vstride, x_cstride, p, s);
   switch (k) {
@@ -1084,6 +1373,15 @@ cudaError_t dispatch_plan(int k, const void* x, const void* g, int B, int X, int
     // groups: no other kernel takes them
     if (x_vstride != 1 || reinterpret_cast<uintptr_t>(g) % 16 != 0) return cudaErrorInvalidValue;
     if (r == R_STEM_CHUNK) return make_plan_stem_chunk(B, X, Y, Z, C, k, p);
+  }
+  if (r == R_BIG) {
+    if (!big_operands(x, g, C, x_vstride)) return cudaErrorInvalidValue;
+    switch (k) {
+      case 9: return make_plan_big<9>(B, X, Y, Z, C, p);
+      case 11: return make_plan_big<11>(B, X, Y, Z, C, p);
+      case 13: return make_plan_big<13>(B, X, Y, Z, C, p);
+      default: return make_plan_big<15>(B, X, Y, Z, C, p);
+    }
   }
   if (r == R_ANY) return make_plan_any<T>(k, B, X, C, p);
   switch (k) {
@@ -1125,7 +1423,7 @@ extern "C" int skoots_dwconv3d_wgrad(int dtype, const void* x, const void* g, vo
                                      const int* plan, void* stream) {
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
-  if (p.path < FP32 || p.path > STEM_CHUNK || p.rows < 0) return (int)cudaErrorInvalidValue;
+  if (p.path < FP32 || p.path > DEPTHWISE_BIG || p.rows < 0) return (int)cudaErrorInvalidValue;
   float* pf = static_cast<float*>(partial);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1139,7 +1437,8 @@ extern "C" int skoots_dwconv3d_wgrad(int dtype, const void* x, const void* g, vo
 
 // The kernel skoots_dwconv3d_wgrad takes at (dtype, x_cstride, C, k) for
 // contiguous 16-byte-aligned operands, by name ("stem_wgrad_chunk_kernel<2,0>",
-// "dwconv3d_wgrad_tc_kernel<7>", "dwconv3d_wgrad_any_kernel<bf16>", ...), or
+// "dwconv3d_wgrad_tc_kernel<7>", "dwconv3d_wgrad_big_kernel<9>",
+// "dwconv3d_wgrad_any_kernel<bf16>", ...), or
 // null where it refuses them. A pure function of its integers.
 extern "C" const char* skoots_dwconv3d_wgrad_route(int dtype, int x_cstride, int C, int k) {
   return route_name(route(dtype, x_cstride, C, k), dtype, C, k);

@@ -36,13 +36,19 @@ and ``stem_wgrad_chunk_kernel`` (N in chunks of at most 64 channels, 16 dz
 lanes a group at k >= 9; ``tests/test_torch_stem_gemm.py`` states both).
 
 Kernel sizes: every odd k >= 3, as JAX's schema takes. The depthwise
-kernels are instantiated for k = 3, 5 and 7; every other odd k of a
-depthwise layer (and stems the GEMMs do not take: f32, k > 15, C off the
-rule) runs a simple kernel with a run-time k, forward (a thread an output
-value) and weight gradient (a thread a weight entry of a partial row), f32
-sums. The input gradient is the forward kernel on the cotangent (a
-depthwise layer), so it takes the same k. :func:`dwconv3d_route` and
-:func:`dwconv3d_wgrad_route` name the kernel a launch takes.
+kernels are instantiated for k = 3, 5 and 7; a bf16 depthwise layer with
+C % 8 == 0 at k = 9, 11, 13 or 15 runs ``dwconv3d_big_kernel`` and
+``dwconv3d_wgrad_big_kernel`` (the banded products in one or two bands of
+z taps, the forward's taps from a weight panel in shared memory, the
+weight gradient's sums split into dy groups; ``tests/
+test_torch_dwconv_bigk.py`` states both). Every other odd k (f32, bf16
+without 16-byte channel groups, k > 15; and stems the GEMMs do not take:
+f32, k > 15, C off the rule) runs a simple kernel with a run-time k,
+forward (a thread an output value) and weight gradient (a thread a weight
+entry of a partial row), f32 sums. The input gradient is the forward
+kernel on the cotangent (a depthwise layer), so it takes the same k.
+:func:`dwconv3d_route` and :func:`dwconv3d_wgrad_route` name the kernel a
+launch takes.
 
 Numerics of both forward versions: the taps accumulate in f32, the bias is
 added in f32, and the result rounds ONCE to the input dtype, as the Pallas
@@ -114,6 +120,9 @@ def _dwconv3d_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     _build.check_operands("dwconv3d", x.device, w=(w, (k, k, k, c)), b=(b, (c,)))
     bsz, xs, ys, zs, cin = x.shape
     x = x.contiguous()
+    if x.data_ptr() % 16 and dwconv3d_route(x.dtype, 1 if cin == c else 0, c, k).startswith(
+            "dwconv3d_big_kernel<"):
+        x = x.clone()  # it reads 16-byte channel groups
     w = w.float().contiguous()
     b = b.float().contiguous()
     out = torch.empty((bsz, xs, ys, zs, c), dtype=x.dtype, device=x.device)
@@ -155,8 +164,13 @@ def dwconv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     bsz, xs, ys, zs, cin = x.shape
     x = x.contiguous()
     g = g.contiguous()
-    if cin != c and g.data_ptr() % 16:  # the stems read g as 16-byte channel groups
+    # the stems read g, the big-k kernel x and g, as 16-byte channel groups
+    big = bool(x.data_ptr() % 16 or g.data_ptr() % 16) and dwconv3d_wgrad_route(
+        x.dtype, 1 if cin == c else 0, c, k).startswith("dwconv3d_wgrad_big_kernel<")
+    if (cin != c or big) and g.data_ptr() % 16:
         g = g.clone()
+    if big and x.data_ptr() % 16:
+        x = x.clone()
     lib = _build.library()
     dtype, cstride = _build.DTYPE_CODES[x.dtype], 1 if cin == c else 0
     # the launch plan depends on these alone (and the card): made once each

@@ -135,11 +135,12 @@ def head_case(gen, v, c, n, dtn, repeats):
             "bound_ms": least[0], "bound_by": least[1]}
 
 
-def forward_seconds(wide: bool, repoll: int = 3) -> dict:
+def forward_seconds(wide: bool, repoll: int = 3, kernel_size: int | None = None) -> dict:
     """The ``1-forward`` phase of ``make_chunked_pipeline`` at ``bench.py``'s
     knobs on the 512^3 bench phantom (48 tubes, seed 7): the bench
-    checkpoint's model, or (``wide``) its cfg at ``WIDE_DIMS`` with random
-    weights from seed 0. One warm-up run, then the median of ``repoll``."""
+    checkpoint's model, or its cfg at ``WIDE_DIMS`` (``wide``) or at
+    ``MODEL.KERNEL_SIZE`` ``kernel_size`` with random weights from seed 0.
+    The first run's, then the median of ``repoll`` more."""
     from skoots_tpu_torch.checkpoint import load_checkpoint
     from skoots_tpu_torch.config import cfg_from_dict
     from skoots_tpu_torch.infer.device_pipeline import make_chunked_pipeline
@@ -153,6 +154,9 @@ def forward_seconds(wide: bool, repoll: int = 3) -> dict:
     cfg = cfg_from_dict(ckpt["cfg"])
     if wide:
         cfg["MODEL"].update(DIMS=WIDE_DIMS, OUT_CHANNELS=WIDE_DIMS[-1])
+    if kernel_size is not None:
+        cfg["MODEL"]["KERNEL_SIZE"] = kernel_size
+    if wide or kernel_size is not None:
         model = init_model(cfg, 0, device="cuda").eval()
     else:
         model = model_from_checkpoint(ckpt, device="cuda")
@@ -166,6 +170,7 @@ def forward_seconds(wide: bool, repoll: int = 3) -> dict:
     mean, std = float(ckpt["dataset_mean"]), float(ckpt["dataset_std"])
     with torch.no_grad():
         run(volume, mean, std)
+        first = run.last_phase_s["1-forward"]
         fwd, e2e = [], []
         for _ in range(repoll):
             torch.cuda.synchronize()
@@ -176,8 +181,10 @@ def forward_seconds(wide: bool, repoll: int = 3) -> dict:
             fwd.append(run.last_phase_s["1-forward"])
     del model, volume, run
     torch.cuda.empty_cache()
-    return {"model": "wide 48-96-192" if wide else "bench 32-64-128",
-            "1-forward_s": float(np.median(fwd)), "1-forward_runs_s": fwd,
+    name = "wide 48-96-192" if wide else "bench 32-64-128"
+    return {"model": name if kernel_size is None else f"{name} k = {kernel_size}",
+            "1-forward_first_s": first, "1-forward_s": float(np.median(fwd)),
+            "1-forward_runs_s": fwd,
             "e2e_s": float(np.median(e2e))}
 
 

@@ -337,12 +337,14 @@ def test_cuda_tail_and_ln_head_at_every_width(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_dwconv_at_every_odd_k(cuda_device):
-    """k = 9 and 11 (the run-time-k kernel): bf16 within 1 bf16 ulp, f32
-    within 1e-5 of max|plain|, the depthwise layer and the stem, batch 2 on
-    ragged X, Y, Z; the bf16 input gradient against its plain composition;
-    then the bf16 stems at C = 16, 48, 256 and k = 3, 7, 9, 11, each on the
-    stem GEMM its route names (``stem_gemm_chunk_kernel<k, NT>``), within
-    1 bf16 ulp."""
+    """k = 9 and 11: bf16 within 1 bf16 ulp, f32 within 1e-5 of max|plain|,
+    the depthwise layer and the stem, batch 2 on ragged X, Y, Z; the bf16
+    input gradient against its plain composition; then the bf16 stems at C
+    = 16, 48, 256 and k = 3, 7, 9, 11, each on the stem GEMM its route names
+    (``stem_gemm_chunk_kernel<k, NT>``), within 1 bf16 ulp; then bf16
+    depthwise layers at k = 9 to 15 and C = 16, 32, 48, 96, 256 on
+    ``dwconv3d_big_kernel<k>``, and those it does not take (C off 8 at k =
+    9 and 11, k = 17) on ``dwconv3d_any_kernel<bf16>``, within 1 bf16 ulp."""
     rng = np.random.default_rng(9)
     dwconv3d.launches = 0
     cases = [((2, 9, 14, 11), 16, 16, 9), ((1, 12, 10, 13), 1, 16, 11),
@@ -385,6 +387,41 @@ def test_cuda_dwconv_at_every_odd_k(cuda_device):
         got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
         assert got.dtype == torch.bfloat16 and _bf16_ulps(got, ref) <= 1.0, (c, k, route)
     assert dwconv3d.launches == 2 * len(cases) + 2 + len(stems)
+    # bf16 depthwise layers at k = 9 to 15: dwconv3d_big_kernel<k> at every
+    # width (one operand contiguous but off a 16-byte boundary: the wrapper
+    # aligns it); f32 still on the run-time-k kernel
+    bigs = [(c, k) for k in (9, 11, 13, 15) for c in (16, 32, 48, 96, 256)]
+    for c, k in bigs:
+        assert dwconv3d_route(torch.bfloat16, 1, c, k) == f"dwconv3d_big_kernel<{k}>", (c, k)
+        assert dwconv3d_route(torch.float32, 1, c, k) == "dwconv3d_any_kernel<float>", (c, k)
+        shape = (2, 11, 37, 13, c) if c <= 48 else (1, 9, 21, 11, c)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        if c == 48:
+            flat = torch.empty(x.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+            x = flat[1:].view(shape).copy_(x)
+        else:
+            x = x.to(cuda_device, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((k, k, k, c)) / k ** 1.5).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32))
+        w = w.to(cuda_device).to(torch.bfloat16).float()
+        b = b.to(cuda_device).to(torch.bfloat16).float()
+        got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and _bf16_ulps(got, ref) <= 1.0, (c, k)
+    # the bf16 depthwise layers left to the run-time-k kernel
+    anys = [(12, 9), (20, 11), (16, 17)]
+    for c, k in anys:
+        assert dwconv3d_route(torch.bfloat16, 1, c, k) == "dwconv3d_any_kernel<bf16>", (c, k)
+        x = torch.from_numpy(rng.standard_normal((2, 11, 17, 13, c)).astype(np.float32))
+        x = x.to(cuda_device, torch.bfloat16)
+        w = torch.from_numpy((rng.standard_normal((k, k, k, c)) / k ** 1.5).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal(c) * 0.1).astype(np.float32))
+        w = w.to(cuda_device).to(torch.bfloat16).float()
+        b = b.to(cuda_device).to(torch.bfloat16).float()
+        got, ref = dwconv3d(x, w, b), dwconv3d_ref(x, w, b)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and _bf16_ulps(got, ref) <= 1.0, (c, k)
+    assert dwconv3d.launches == 2 * len(cases) + 2 + len(stems) + len(bigs) + len(anys)
 
 
 @pytest.mark.cuda

@@ -106,14 +106,17 @@ def test_cuda_every_parameter_gets_a_finite_gradient(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 7, 9, 11])
+@pytest.mark.parametrize("k", [3, 7, 9, 11, 13, 15])
 def test_cuda_wgrad_at_every_odd_k(cuda_device, k):
     """Every odd k, bf16 and f32, the depthwise layer and the stem's one
-    input channel, over a ragged batch of 2 (k other than 3, 5 and 7: the
-    run-time-k kernel for a depthwise layer), then the bf16 stems at C =
+    input channel, over a ragged batch of 2, then the bf16 stems at C =
     16, 48, 256 on the stem GEMM their route names
-    (``stem_wgrad_chunk_kernel<NT, k <= 7>``): within 1e-3 * max|plain|,
-    the same from run to run."""
+    (``stem_wgrad_chunk_kernel<NT, k <= 7>``), then at k >= 9 the bf16
+    depthwise layer at C = 16, 32, 48, 96, 256 on
+    ``dwconv3d_wgrad_big_kernel<k>`` (f32: the run-time-k kernel) and at C
+    = 12, 20 (and at k = 15 also C = 16, k = 17) on
+    ``dwconv3d_wgrad_any_kernel<bf16>``: within 1e-3 * max|plain|, the same
+    from run to run."""
     rng = np.random.default_rng(7 + k)
     for cin, c, shape in ((16, 16, (2, 13, 11, 9)), (1, 16, (1, 12, 10, 8)),
                           (64, 64, (1, 9, 8, 7))):
@@ -135,6 +138,39 @@ def test_cuda_wgrad_at_every_odd_k(cuda_device, k):
         ref = dwconv3d_wgrad_ref(x, g, k)
         assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), (c, k, route)
         assert torch.equal(got, dwconv3d_wgrad(x, g, k)), (c, k)
+    if k <= 7:
+        return
+    # bf16 depthwise layers at k >= 9: dwconv3d_wgrad_big_kernel at every
+    # width (one operand contiguous but off a 16-byte boundary: the wrapper
+    # aligns it); f32 still on the run-time-k kernel
+    for c in (16, 32, 48, 96, 256):
+        assert dwconv3d_wgrad_route(torch.bfloat16, 1, c, k) == \
+            f"dwconv3d_wgrad_big_kernel<{k}>", (c, k)
+        assert dwconv3d_wgrad_route(torch.float32, 1, c, k) == \
+            "dwconv3d_wgrad_any_kernel<float>", (c, k)
+        shape = (2, 11, 21, 13, c) if c <= 48 else (1, 9, 18, 11, c)
+        x = T(rng.standard_normal(shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+        g = T(rng.standard_normal(shape).astype(np.float32))
+        if c == 48:
+            flat = torch.empty(g.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+            g = flat[1:].view(shape).copy_(g)
+        else:
+            g = g.to(cuda_device, torch.bfloat16)
+        got = dwconv3d_wgrad(x, g, k)
+        ref = dwconv3d_wgrad_ref(x, g, k)
+        assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), (c, k)
+        assert torch.equal(got, dwconv3d_wgrad(x, g, k)), (c, k)
+    # the bf16 depthwise layers left to the run-time-k kernel: C off 8, k > 15
+    for c, kk in [(12, k), (20, k)] + ([(16, 17)] if k == 15 else []):
+        assert dwconv3d_wgrad_route(torch.bfloat16, 1, c, kk) == \
+            "dwconv3d_wgrad_any_kernel<bf16>", (c, kk)
+        x = T(rng.standard_normal((2, 11, 14, 13, c)).astype(np.float32))
+        g = T(rng.standard_normal((2, 11, 14, 13, c)).astype(np.float32))
+        x, g = x.to(cuda_device, torch.bfloat16), g.to(cuda_device, torch.bfloat16)
+        got = dwconv3d_wgrad(x, g, kk)
+        ref = dwconv3d_wgrad_ref(x, g, kk)
+        assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()), (c, kk)
+        assert torch.equal(got, dwconv3d_wgrad(x, g, kk)), (c, kk)
 
 
 @pytest.mark.cuda
