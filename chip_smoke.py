@@ -1,9 +1,11 @@
 """Drive the PyTorch/CUDA port (``skoots_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,host,...]
 
 Needs a CUDA card and ``nvcc``; exits non-zero (printing no result) without
-them. In order:
+them. ``--phases`` runs only the named phases (``PHASES``) and the phases
+they need, in order, so two calls can share the work; with no argument
+every phase runs. In order:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the hand-written CUDA kernels from ``skoots_tpu_torch/csrc`` (one
@@ -199,7 +201,16 @@ them. In order:
     and training) each on the GEMM the path's width takes (``_stem_routes``
     at the library's entry points; over the whole run, every bf16 stem the
     GEMMs take on one);
-22. prints one JSON line of per-kernel results (each with its least time on
+22. last, the JAX repo's last four user tools as the port runs them
+    (``run_tools``): ``skeleton_quality`` on the host; ``calibrate_sparse_ckpt``
+    on a copy of 14's checkpoint and its volumes written as a training
+    directory (launches exact, the parameters, optimizer state and other
+    ``extra`` keys unchanged, the threshold beside the save-time one);
+    ``score_checkpoint`` on 17's separated checkpoint (launches exact, F1 at
+    IoU 0.5 >= 0.8 and mean IoU >= 0.7); ``convergence`` at 2 epochs of 2
+    steps through the real CLIs, every training and inference launch
+    counted exactly;
+23. prints one JSON line of per-kernel results (each with its least time on
     the card, ``bound_ms``, from the bytes it must move at 3.35 TB/s and its
     operations at the published peak of their type), and last the
     ``{"ok": true, ...}`` device line.
@@ -3205,7 +3216,7 @@ def run_sparse_inference(results: list, ckpt_path: str, vol) -> None:
     _need(len(gates) == 1 and forwards >= 1
           and all(counts[k] == v * forwards for k, v in FORWARD_KERNELS_PER_TILE.items()),
           f"sparse inference: gates {gates}, launches {counts}")
-    shutil.rmtree(os.path.join(ROOT, "build", "sparse_smoke"), ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)  # the checkpoint stays for run_tools
     torch.cuda.empty_cache()
 
 
@@ -3493,7 +3504,33 @@ CAMPAIGN_PER_FORWARD = {"dwconv3d": 6, "mlp_block_tail": 5, "ln_head": 1, "upsam
 CAMPAIGN_PER_STEP = {"dwconv3d": 5, "dwconv3d_wgrad": 6}
 
 
-def run_campaign(results: list) -> None:
+def _campaign_model_launches(steps: int, epochs: int, panels: bool, bsz: int,
+                             stats: dict) -> dict:
+    """Launches of the campaign model's ``steps`` training steps (and a
+    panel forward an epoch where TensorBoard imports) and one
+    ``run_inference`` after them (the dilation probe's forwards and phase
+    1's tiles, propagate once a CC round; ``stats`` is its
+    ``engine.last_stats``), by kernel."""
+    tiles = stats["phase1"]["tiles"]
+    forwards = steps + (epochs if panels else 0) + min(4, tiles) + tiles
+    want = {name: k * forwards + CAMPAIGN_PER_STEP.get(name, 0) * steps
+            for name, k in CAMPAIGN_PER_FORWARD.items()}
+    want.update(dwconv3d_wgrad=CAMPAIGN_PER_STEP["dwconv3d_wgrad"] * steps,
+                bake_skeleton=bsz * steps, propagate=stats["phase2"]["cc_rounds"])
+    return want
+
+
+def _tensorboard_panels() -> bool:
+    """Whether the training loop writes its panels (a forward an epoch):
+    only where TensorBoard imports."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def run_campaign(results: list) -> str:
     """The accuracy campaign's ``separated`` scenario at the tool's defaults
     (150 epochs of 10 steps, the campaign model at widths 16-32-64) through
     ``tools/accuracy_campaign.py::run_scenario`` on the card: the phantoms,
@@ -3502,18 +3539,16 @@ def run_campaign(results: list) -> None:
     barred): per training step and per forward (the training panels' one
     an epoch where TensorBoard is installed, the dilation probe's, phase
     1's tiles), propagate once a CC round. F1 at IoU 0.5 must reach 0.8.
-    Then :func:`check_campaign_propagate` on the run's stored skeleton."""
+    Then :func:`check_campaign_propagate` on the run's stored skeleton.
+    Returns the campaign's outdir (its checkpoint is scored again by
+    :func:`run_tools`)."""
     from skoots_tpu_torch.config import load_cfg_from_file
     from skoots_tpu_torch.infer import engine
     from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
     from skoots_tpu_torch.kernels.dwconv import dwconv3d_wgrad
     from skoots_tpu_torch.tools import accuracy_campaign as ac
 
-    try:  # the training loop writes its panels (a forward an epoch) only then
-        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
-        panels = True
-    except ImportError:
-        panels = False
+    panels = _tensorboard_panels()
     outdir = os.path.join(ROOT, "build", "campaign_smoke")
     shutil.rmtree(outdir, ignore_errors=True)
     epochs, steps_per_epoch = 150, 10
@@ -3527,11 +3562,7 @@ def run_campaign(results: list) -> None:
         "TRAIN_BATCH_SIZE"]
     steps = result["steps"]
     tiles = stats["phase1"]["tiles"]
-    forwards = steps + (epochs if panels else 0) + min(4, tiles) + tiles
-    want = {name: k * forwards + CAMPAIGN_PER_STEP.get(name, 0) * steps
-            for name, k in CAMPAIGN_PER_FORWARD.items()}
-    want.update(dwconv3d_wgrad=CAMPAIGN_PER_STEP["dwconv3d_wgrad"] * steps,
-                bake_skeleton=bsz * steps, propagate=stats["phase2"]["cc_rounds"])
+    want = _campaign_model_launches(steps, epochs, panels, bsz, stats)
     print(f"campaign [separated]: F1@0.5 {result['f1_at_iou50']} (bar 0.8), mean IoU "
           f"{result['mean_iou']}, {result['pred_instances']} of {result['gt_instances']} "
           f"instances, {steps} steps, {wall:.1f} s; launches expected "
@@ -3544,7 +3575,7 @@ def run_campaign(results: list) -> None:
     check_campaign_propagate(
         results, os.path.join(outdir, "separated", "val", "val_skoots_skeleton.npy"),
         tuple(stats["phase2"]["cc_crop"]), stats["phase2"]["cc_rounds"])
-    shutil.rmtree(outdir, ignore_errors=True)
+    return outdir
 
 
 def check_campaign_propagate(results: list, skel_path: str, cc_crop: tuple,
@@ -3966,8 +3997,161 @@ def run_dp_train(results: list, records) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+TOOLS_CONVERGENCE = (2, 2)  # epochs, steps an epoch: the tool's whole path, not its bars
+
+
+def _tools_sparse_dir(path: str, vols) -> str:
+    """The sparse training phase's volumes in the file contract of
+    ``experimental/data.py`` (``<name>.tif``, ``.background.tif``,
+    ``.skeletons.npz``, named as its in-memory records): the same records
+    read back."""
+    from scipy import ndimage
+
+    from skoots_tpu_torch.train.generate_skeletons import save_skeletons
+    from skoots_tpu_torch.utils.io import imsave
+
+    os.makedirs(path, exist_ok=True)
+    for i, (img, labels, skels) in enumerate(vols):
+        base = os.path.join(path, f"tubes{i}")
+        imsave(base + ".tif", img.astype(np.float32))
+        imsave(base + ".background.tif",
+               (ndimage.distance_transform_edt(labels == 0) > SPARSE_BG_DIST).astype(np.uint8))
+        save_skeletons(base + ".skeletons.npz", skels)
+    return path
+
+
+def run_tools(results: list, sparse_ckpt: str, sparse_vols, campaign_dir: str) -> None:
+    """The JAX repo's last four user tools, ported under
+    ``skoots_tpu_torch/tools/``, on the card:
+
+    * ``skeleton_quality`` (host only): every method on every shape, the
+      rows printed;
+    * ``calibrate_sparse_ckpt`` on a copy of the sparse training phase's
+      checkpoint and its volumes written as a training directory: launches
+      exact (each calibrator forward the bench model's kernels), the
+      parameters, optimizer state and other ``extra`` keys as they were,
+      the threshold printed beside the one the save-time calibration wrote;
+    * ``score_checkpoint`` on the campaign's separated checkpoint and
+      validation volume: launches exact, F1 at IoU 0.5 >= 0.8 and mean IoU
+      >= 0.7, printed beside the campaign's own score;
+    * ``convergence`` at ``TOOLS_CONVERGENCE`` (epochs, steps): the tool's
+      whole path -- phantoms, cfg, ``skoots-train-torch``, ``run_inference``,
+      the score -- with every training and inference launch counted exactly
+      and the stems' routes asserted; its score is not held to the bars at
+      that size."""
+    from skoots_tpu_torch.checkpoint import load_checkpoint
+    from skoots_tpu_torch.config import load_cfg_from_file
+    from skoots_tpu_torch.infer import engine
+    from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
+    from skoots_tpu_torch.kernels.dwconv import dwconv3d_wgrad
+    from skoots_tpu_torch.tools import calibrate_sparse_ckpt, convergence
+    from skoots_tpu_torch.tools import score_checkpoint, skeleton_quality
+
+    t_phase = time.time()
+    work = os.path.join(ROOT, "build", "tools_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    t0 = time.time()
+    sq_out = os.path.join(work, "skeleton_quality_torch.json")
+    _need(skeleton_quality.main(["--out", sq_out]) == 0, "skeleton_quality failed")
+    with open(sq_out) as f:
+        rows = json.load(f)
+    print(f"tools [skeleton_quality]: {time.time() - t0:.1f} s (host), rows "
+          f"{json.dumps(rows)}", flush=True)
+    _need(sorted(rows) == sorted(skeleton_quality.SHAPES) and all(
+        sorted(by_m) == sorted(skeleton_quality.METHODS) and all(
+            0 < r["coverage"] <= 1 and 0 < r["inside"] <= 1 and r["n_points"] > 0
+            for r in by_m.values()) for by_m in rows.values()),
+        f"skeleton_quality rows {rows}")
+
+    ckpt = os.path.join(work, "sparse.skoots")
+    shutil.copy(sparse_ckpt, ckpt)
+    train_dir = _tools_sparse_dir(os.path.join(work, "sparse_train"), sparse_vols)
+    thr, counts, wall = _drive("tools [calibrate_sparse_ckpt]", lambda:
+                               calibrate_sparse_ckpt.calibrate_checkpoint(ckpt, train_dir,
+                                                                          "cuda"), results)
+    before, after = load_checkpoint(sparse_ckpt), load_checkpoint(ckpt)
+    saved = before["extra"]["calibrated_prob_threshold"]
+    n = counts["ln_head"]
+    print(f"tools [calibrate_sparse_ckpt]: threshold {thr!r}, the save-time calibration's "
+          f"{saved!r} ({'equal' if thr == saved else f'differs by {thr - saved:.3g}'}), "
+          f"{n} forwards", flush=True)
+    _need(thr is not None and 1 <= n <= 8, f"calibrate_sparse_ckpt: {thr}, {n} forwards")
+    for name, c in counts.items():
+        _need(c == n * FORWARD_KERNELS_PER_TILE.get(name, 0),
+              f"calibrate_sparse_ckpt: {name} {c} launches, {n} forwards")
+    _need(after["extra"].pop("calibrated_prob_threshold") == thr
+          and after["extra"] == {k: v for k, v in before["extra"].items()
+                                 if k != "calibrated_prob_threshold"},
+          f"calibrate_sparse_ckpt rewrote extra {after['extra']}")
+    flat = [(_flat_leaves(before[k]), _flat_leaves(after[k])) for k in ("params", "opt_state")]
+    _need(all(a.keys() == b.keys() and all(np.array_equal(a[q], b[q]) for q in a)
+              for a, b in flat), "calibrate_sparse_ckpt changed the parameters or opt_state")
+    _need((after["dataset_mean"], after["dataset_std"]) ==
+          (before["dataset_mean"], before["dataset_std"]), "the dataset statistics changed")
+
+    kernels = {**_launch_counters(), "dwconv3d_wgrad": dwconv3d_wgrad,
+               "bake_skeleton": bake_skeleton_kernel}
+    separated = os.path.join(campaign_dir, "separated")
+    with open(os.path.join(separated, "result.json")) as f:
+        campaign = json.load(f)
+    with _stem_routes("tools [score_checkpoint]", {"forward": CAMPAIGN_STEM_ROUTES["forward"]}):
+        rc, counts, wall = _drive("tools [score_checkpoint]", lambda: score_checkpoint.main(
+            ["--outdir", separated, "--device", "cuda"]), results, kernels)
+    with open(os.path.join(separated, "result.json")) as f:
+        scored = json.load(f)
+    want = _campaign_model_launches(0, 0, False, 0, engine.last_stats)
+    print(f"tools [score_checkpoint]: F1@0.5 {scored['f1_at_iou50']} mean IoU "
+          f"{scored['mean_iou']} (bars 0.8 / 0.7; the campaign scored "
+          f"{campaign['f1_at_iou50']} / {campaign['mean_iou']}), engine {scored['engine']}, "
+          f"{wall:.1f} s; launches expected {json.dumps(want)}", flush=True)
+    _need(rc == 0 and scored["ok"], f"score_checkpoint: {scored}")
+    for name, c in counts.items():
+        _need(c == want[name], f"score_checkpoint: {name} {c} launches, expected {want[name]}")
+
+    epochs, steps_per_epoch = TOOLS_CONVERGENCE
+    outdir = os.path.join(work, "convergence")
+    with _stem_routes("tools [convergence]", CAMPAIGN_STEM_ROUTES):
+        rc, counts, wall = _drive("tools [convergence]", lambda: convergence.main(
+            ["--epochs", str(epochs), "--steps-per-epoch", str(steps_per_epoch),
+             "--outdir", outdir, "--device", "cuda"]), results, kernels)
+    with open(os.path.join(outdir, "result.json")) as f:
+        result = json.load(f)
+    bsz = load_cfg_from_file(os.path.join(outdir, "cfg.yaml"))["TRAIN"]["TRAIN_BATCH_SIZE"]
+    want = _campaign_model_launches(result["steps"], epochs, _tensorboard_panels(), bsz,
+                                    engine.last_stats)
+    print(f"tools [convergence] {epochs} x {steps_per_epoch}: rc {rc}, "
+          f"{json.dumps(result)}; launches expected {json.dumps(want)}", flush=True)
+    _need(rc == (0 if result["ok"] else 1) and result["steps"] == epochs * steps_per_epoch
+          and result["engine"] and result["gt_instances"] >= 1, f"convergence: {result}")
+    for name, c in counts.items():
+        _need(c > 0, f"convergence: kernel {name} was not launched")
+        _need(c == want[name], f"convergence: {name} {c} launches, expected {want[name]}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"tools phase: {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    """``{path: array}`` of a loaded checkpoint tree (None: no leaves)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat_leaves(sub, f"{prefix}/{key}").items()}
+    return {} if tree is None else {prefix: np.asarray(tree)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port once on one GPU.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (with the phases they need), of: "
+                         + ", ".join(name for name, _, _ in PHASES if name)
+                         + "; default every phase")
+    args = ap.parse_args(argv)
+    phases = _phases_to_run(args.phases.split(",") if args.phases else None)
 
     print(gpu_line(), flush=True)
     _need(torch.cuda.is_available(), "no CUDA device: chip_smoke needs a GPU")
@@ -3991,7 +4175,7 @@ def main() -> int:
 
     check_yaml_reader()
     with _stem_routes("the whole run"):
-        results = run_all()
+        results = run_all(phases)
     for r in results:
         r.pop("_largest")
     print(json.dumps({"kernels": results}), flush=True)
@@ -4001,45 +4185,128 @@ def main() -> int:
     return 0
 
 
-def run_all() -> list:
-    """Every phase after the build, in order; returns the kernels' results."""
+def _release_slice(s: dict) -> None:
+    """Free the 512^3 phantom's model, volume and pipelines before the
+    thrifty engine."""
     import torch
 
-    results = check_kernels()
-    check_microbenchmarks(results)
-    check_train_kernels(results)
-    host_phantom, n_default, n_expected, host_mask, block_origin = run_host_engine(results)
-    run_device_pipeline(results, host_phantom, n_expected, block_origin)
-    run_tif(results, host_phantom, host_mask)
-    run_experimental(results, host_phantom, n_default, n_expected)
-    ckpt, model, volume, chunked, chunked_peak, chunked_run = run_slice(results)
-    check_against_cpu(ckpt, model, volume)
+    for key in ("ckpt", "model", "volume", "chunked", "chunked_peak", "chunked_run"):
+        s.pop(key, None)
     torch.cuda.empty_cache()
-    run_wide(results, volume, model, chunked_run)
-    run_kernel_sizes(results, volume, chunked_run)
-    vol_u8, tile_bytes = run_thrifty(results, ckpt, model, volume, chunked, chunked_peak,
-                                     chunked_run)
-    check_sparse_probe(results, ckpt, model, volume)
-    run_cc_variants(results, ckpt, model, volume, chunked, chunked_run, vol_u8)
-    del ckpt, model, volume, chunked, chunked_run
+
+
+def _release_u8(s: dict) -> None:
+    import torch
+
+    s.pop("vol_u8", None)
     torch.cuda.empty_cache()
-    run_thrifty_engine(results, vol_u8, tile_bytes)
-    del vol_u8
+
+
+def _phase_kernels(s: dict) -> None:
+    s["results"] = check_kernels()
+    check_microbenchmarks(s["results"])
+    check_train_kernels(s["results"])
+
+
+def _phase_host(s: dict) -> None:
+    (s["host_phantom"], s["n_default"], s["n_expected"], s["host_mask"],
+     s["block_origin"]) = run_host_engine(s["results"])
+
+
+def _phase_slice(s: dict) -> None:
+    import torch
+
+    (s["ckpt"], s["model"], s["volume"], s["chunked"], s["chunked_peak"],
+     s["chunked_run"]) = run_slice(s["results"])
+    check_against_cpu(s["ckpt"], s["model"], s["volume"])
     torch.cuda.empty_cache()
-    run_scale(results)
-    run_sharded(results)
-    check_grads_against_cpu()
-    records = run_train_slice(results)
-    unet_ckpt = run_train_variants(results, records)
-    run_resume(records)
-    run_dp_train(results, records)
-    run_unet_inference(results, unet_ckpt)
-    sparse_ckpt = run_sparse_train(results, run_skeletonize(
-        [(r.image, r.masks) for r in records]))
-    run_sparse_inference(results, sparse_ckpt, host_phantom)
-    run_perslice_slice(results, host_phantom, n_default)
-    run_campaign(results)
-    return results
+
+
+def _phase_thrifty(s: dict) -> None:
+    s["vol_u8"], s["tile_bytes"] = run_thrifty(
+        s["results"], s["ckpt"], s["model"], s["volume"], s["chunked"], s["chunked_peak"],
+        s["chunked_run"])
+
+
+def _phase_sparse_train(s: dict) -> None:
+    s["sparse_vols"] = run_skeletonize([(r.image, r.masks) for r in s["records"]])
+    s["sparse_ckpt"] = run_sparse_train(s["results"], s["sparse_vols"])
+
+
+# (name, the phases it needs, what it runs on the state ``s``), in the
+# order of a whole run; a nameless entry frees memory and always runs
+PHASES = (
+    ("kernels", (), _phase_kernels),
+    ("host", (), _phase_host),
+    ("device_pipeline", ("host",), lambda s: run_device_pipeline(
+        s["results"], s["host_phantom"], s["n_expected"], s["block_origin"])),
+    ("tif", ("host",), lambda s: run_tif(s["results"], s["host_phantom"], s["host_mask"])),
+    ("experimental", ("host",), lambda s: run_experimental(
+        s["results"], s["host_phantom"], s["n_default"], s["n_expected"])),
+    ("slice", (), _phase_slice),
+    ("wide", ("slice",), lambda s: run_wide(s["results"], s["volume"], s["model"],
+                                            s["chunked_run"])),
+    ("kernel_sizes", ("slice",), lambda s: run_kernel_sizes(s["results"], s["volume"],
+                                                            s["chunked_run"])),
+    ("thrifty", ("slice",), _phase_thrifty),
+    ("sparse_probe", ("slice",), lambda s: check_sparse_probe(
+        s["results"], s["ckpt"], s["model"], s["volume"])),
+    ("cc_variants", ("slice", "thrifty"), lambda s: run_cc_variants(
+        s["results"], s["ckpt"], s["model"], s["volume"], s["chunked"], s["chunked_run"],
+        s["vol_u8"])),
+    ("", (), _release_slice),
+    ("thrifty_engine", ("thrifty",), lambda s: run_thrifty_engine(
+        s["results"], s["vol_u8"], s["tile_bytes"])),
+    ("", (), _release_u8),
+    ("scale", (), lambda s: run_scale(s["results"])),
+    ("sharded", (), lambda s: run_sharded(s["results"])),
+    ("grads", (), lambda s: check_grads_against_cpu()),
+    ("train", (), lambda s: s.update(records=run_train_slice(s["results"]))),
+    ("train_variants", ("train",), lambda s: s.update(
+        unet_ckpt=run_train_variants(s["results"], s["records"]))),
+    ("resume", ("train",), lambda s: run_resume(s["records"])),
+    ("dp_train", ("train",), lambda s: run_dp_train(s["results"], s["records"])),
+    ("unet_inference", ("train_variants",), lambda s: run_unet_inference(
+        s["results"], s["unet_ckpt"])),
+    ("sparse_train", ("train",), _phase_sparse_train),
+    ("sparse_inference", ("sparse_train", "host"), lambda s: run_sparse_inference(
+        s["results"], s["sparse_ckpt"], s["host_phantom"])),
+    ("perslice", ("host",), lambda s: run_perslice_slice(
+        s["results"], s["host_phantom"], s["n_default"])),
+    ("campaign", (), lambda s: s.update(campaign_dir=run_campaign(s["results"]))),
+    ("tools", ("sparse_train", "campaign"), lambda s: run_tools(
+        s["results"], s["sparse_ckpt"], s["sparse_vols"], s["campaign_dir"])),
+)
+
+
+def _phases_to_run(names=None) -> set:
+    """The named phases and every phase they need (None: all of them)."""
+    needs = {name: deps for name, deps, _ in PHASES if name}
+    if names is None:
+        return set(needs)
+    unknown = sorted(set(names) - set(needs))
+    _need(not unknown, f"unknown phases {unknown}; known: {', '.join(needs)}")
+    todo, stack = set(), list(names)
+    while stack:
+        name = stack.pop()
+        if name not in todo:
+            todo.add(name)
+            stack.extend(needs[name])
+    return todo
+
+
+def run_all(phases=None) -> list:
+    """The phases after the build, in order (``phases``: the set of
+    :func:`_phases_to_run`, default every phase); returns the kernels'
+    results."""
+    phases = _phases_to_run() if phases is None else phases
+    s = {"results": []}
+    for name, _, fn in PHASES:
+        if not name or name in phases:
+            fn(s)
+    for done in ("sparse_smoke", "campaign_smoke"):  # what run_tools read
+        shutil.rmtree(os.path.join(ROOT, "build", done), ignore_errors=True)
+    return s["results"]
 
 
 if __name__ == "__main__":

@@ -119,7 +119,7 @@ def tile_masks(out: torch.Tensor, prob_threshold: float, sem_thr: float,
     return vec * keep, skel_u8, sem_u8
 
 
-def make_compact_assign_tile(a_crop, volume_shape, scale, n: int,
+def make_compact_assign_tile(a_crop, volume_shape, scale_arr, n: int,
                              decay: float, device):
     """Assignment of one tile walking only its foreground voxels.
 
@@ -133,7 +133,7 @@ def make_compact_assign_tile(a_crop, volume_shape, scale, n: int,
     x, y, z = volume_shape
     sizes = torch.tensor(a_crop, dtype=torch.int64, device=device)
     strides = torch.tensor([ay * az, az, 1], dtype=torch.int64, device=device)
-    scale_v = torch.as_tensor(scale, dtype=torch.float32, device=device).view(1, 3)
+    scale_v = torch.as_tensor(scale_arr, dtype=torch.float32, device=device).view(1, 3)
 
     def assign(vtile, fg, labels, o):
         flat_vec = vtile.reshape(-1, 3)
@@ -490,6 +490,7 @@ def make_thrifty_pipeline(
     cc_propagates_per_round: int = 128,
     cc_jumps_per_round: int = 1,
     cc_scans_per_round: int = 0,
+    tiles_per_dispatch: int = 16,
     device=None,
 ):
     """The device-thrifty whole-volume pipeline: about 13 B a voxel at its
@@ -508,7 +509,9 @@ def make_thrifty_pipeline(
 
     Knobs are :func:`make_chunked_pipeline`'s but ``cc_impl``: as the JAX
     package's, the CC is always the dense stepped one, whatever
-    ``SKOOTS_CC_IMPL`` says. Returns ``run(volume, mean,
+    ``SKOOTS_CC_IMPL`` says. ``tiles_per_dispatch`` is accepted for
+    signature parity, as :func:`make_chunked_pipeline`'s is: eager PyTorch has no
+    compiled dispatch to chunk. Returns ``run(volume, mean,
     std) -> instance labels [X, Y, Z]``, already numbered 1..N: uint16 when
     N < 2^16 (:func:`widen_u16` widens it), else int32.
     ``run.last_count`` holds N, ``run.last_phase_s`` the phase split,

@@ -39,7 +39,7 @@ def bake_skeleton_ref(
     ``torch.argmin`` returns the first minimum."""
     shape = tuple(masks.shape)
     dev = masks.device
-    coords = coordinate_mesh(shape, dev).reshape(-1, 3)
+    coords = coordinate_mesh(shape, device=dev).reshape(-1, 3)
     mflat = masks.reshape(-1).to(torch.int32)
     pts = points.float()
     pid = ids.to(torch.int32)
@@ -69,24 +69,24 @@ def bake_skeleton_ref(
 def bake_skeleton_kernel(
     masks: torch.Tensor,
     points: torch.Tensor,
-    ids: torch.Tensor,
+    pids: torch.Tensor,
     anisotropy: Tuple[float, float, float] = (1.0, 1.0, 1.0),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bake: the plain version for a CPU tensor, the CUDA kernel for a
     CUDA tensor (raises on what the kernel does not take)."""
     if masks.device.type == "cpu":
-        return bake_skeleton_ref(masks, points, ids, anisotropy)
+        return bake_skeleton_ref(masks, points, pids, anisotropy)
     _build.require_cuda(masks, "bake_skeleton")
     if masks.ndim != 3 or points.ndim != 2 or points.shape[-1] != 3:
         raise ValueError(f"bake_skeleton: masks {tuple(masks.shape)}, "
                          f"points {tuple(points.shape)}")
     p = points.shape[0]
-    _build.check_operands("bake_skeleton", masks.device, ids=(ids, (p,)),
+    _build.check_operands("bake_skeleton", masks.device, pids=(pids, (p,)),
                           points=(points, (p, 3)))
     xs, ys, zs = masks.shape
     m = masks.to(torch.int32).contiguous()
     pts = points.float().contiguous()
-    pid = ids.to(torch.int32).contiguous()
+    pid = pids.to(torch.int32).contiguous()
     baked = torch.empty((xs, ys, zs, 3), dtype=torch.float32, device=masks.device)
     dist = torch.empty((xs, ys, zs), dtype=torch.float32, device=masks.device)
     wx, wy, wz = (float(a) for a in anisotropy)

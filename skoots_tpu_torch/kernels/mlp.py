@@ -36,13 +36,19 @@ from skoots_tpu_torch.kernels import _build
 EPS = 1e-6  # flax nn.LayerNorm default
 
 
-def mlp_tail_eligible(c: int) -> bool:
+def mlp_tail_eligible(x) -> bool:
     """The JAX package's width rule for its fused block tail
     (``skoots_tpu/kernels/mlp.py::mlp_tail_eligible``): C % 8 == 0 and
-    C <= 256. Its volume conditions (a row tile that divides V, V >= 512)
-    are not mirrored: the kernels here take any V. The model runs flax's
-    plain composition at every other width, as JAX's does."""
-    return 0 < c <= 256 and c % 8 == 0
+    C <= 256. ``x`` is the channels-last ``[B, X, Y, Z, C]`` operand (as
+    JAX's; another rank is not eligible) or its width C. Its volume
+    conditions (a row tile that divides V, V >= 512) are not mirrored: the
+    kernels here take any V. The model runs flax's plain composition at
+    every other width, as JAX's does."""
+    if hasattr(x, "shape"):
+        if len(x.shape) != 5:
+            return False
+        x = x.shape[-1]
+    return 0 < x <= 256 and x % 8 == 0
 
 
 # the kernels a launch may take (csrc/mlp.cu), as mlp_tail_route names them

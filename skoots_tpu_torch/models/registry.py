@@ -32,7 +32,7 @@ def cfg_to_model(cfg: dict, device=None) -> SpatialEmbedding:
         backbone = UNeXT3D(drop_path_rate=float(m["DROP_PATH_RATE"]),
                            layer_scale_init_value=m["LAYER_SCALE_INIT_VALUE"], **common)
     elif arch in ("bism_unet", "unet"):
-        backbone = UNet3D(**common)  # JAX's UNet3D takes no DropPath or layer scale
+        backbone = UNet3D(**common)  # JAX's UNet3D uses no DropPath or layer scale
     else:
         raise RuntimeError(f"{arch!r} is not a valid architecture; valid: "
                            "bism_unext, unext, bism_unet, unet")

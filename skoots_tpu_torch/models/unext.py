@@ -289,6 +289,19 @@ class Downsample(nn.Module):
         return (y + _rnd(self.conv.bias, dt)).to(dt)
 
 
+def upsample_trilinear(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Trilinear upsample of a channels-last ``[B, X, Y, Z, C]`` tensor by
+    ``factor`` (JAX's ``models/unext.py::upsample_trilinear``): the 2x
+    kernel (:func:`upsample2x`) at factor 2, else the half-pixel trilinear
+    resize ``jax.image.resize`` computes (``F.interpolate``,
+    ``align_corners=False``), in f32 and cast back to ``x``'s dtype."""
+    if factor == 2:
+        return upsample2x(x)
+    y = F.interpolate(x.movedim(-1, 1).float(), scale_factor=factor, mode="trilinear",
+                      align_corners=False)
+    return y.movedim(1, -1).to(x.dtype)
+
+
 class ConcatConv3D(nn.Module):
     """Skip fusion: concat the decoder stream with the encoder skip, then a
     1^3 conv (flax Dense ``fuse``) to ``dim``."""
@@ -441,7 +454,10 @@ class UNet3D(nn.Module):
                  dims: Sequence[int] = (32, 64, 128, 64, 32),
                  depths: Sequence[int] = (2, 2, 2, 2, 2), kernel_size: int = 3,
                  activation: str = "relu", dtype: torch.dtype = torch.bfloat16,
+                 drop_path_rate: float = 0.0, layer_scale_init_value: float = 1.0,
                  device=None):
+        # drop_path_rate and layer_scale_init_value: accepted as JAX's
+        # UNet3D accepts them for the factory; the classic blocks use neither
         super().__init__()
         if len(dims) % 2 != 1 or len(depths) != len(dims):
             raise ValueError(f"dims {dims} / depths {depths}: need odd, equal lengths")

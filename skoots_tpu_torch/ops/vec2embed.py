@@ -47,9 +47,9 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return exact
 
 
-def coordinate_mesh(spatial, device=None) -> torch.Tensor:
-    """``[*spatial, D]`` f32 voxel coordinates."""
-    axes = [torch.arange(s, dtype=torch.float32, device=device) for s in spatial]
+def coordinate_mesh(spatial_shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``[*spatial_shape, D]`` voxel coordinates (ij indexing) in ``dtype``."""
+    axes = [torch.arange(s, dtype=dtype, device=device) for s in spatial_shape]
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
 
 
@@ -57,7 +57,7 @@ def _setup(scale, vector):
     spatial = tuple(vector.shape[1:-1])
     d = vector.shape[-1]
     dev = vector.device
-    mesh = coordinate_mesh(spatial, dev)[None]
+    mesh = coordinate_mesh(spatial, device=dev)[None]
     scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
     vec = vector.float()
     embed = fma(vec, scale.view((1,) * (len(spatial) + 1) + (d,)), mesh)

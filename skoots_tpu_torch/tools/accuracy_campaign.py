@@ -195,22 +195,13 @@ def write_cfg(path: str, train_dir: str, save_dir: str, epochs: int,
 
 def score(gt: np.ndarray, pred: np.ndarray, device="cpu") -> dict:
     """F1 at IoU 0.5, the mean best IoU of the GT instances and the counts,
-    from ``validate.metrics`` on ``device``."""
-    import torch
+    from ``validate.metrics`` on ``device``: ``score_checkpoint.score``
+    without its ``ok`` (each scenario has its own bar)."""
+    from skoots_tpu_torch.tools.score_checkpoint import score as scored
 
-    from skoots_tpu_torch.validate.metrics import accuracies_from_iou, mask_iou
-
-    iou = mask_iou(gt, pred, device=device)
-    n_gt, n_pred = iou.shape
-    best = iou.max(dim=1).values if iou.numel() else torch.zeros(n_gt, dtype=torch.float64)
-    tp, fp, fn = accuracies_from_iou(iou, 0.5)
-    f1 = 2 * tp / max(2 * tp + fp + fn, 1)
-    return {
-        "f1_at_iou50": round(float(f1), 4),
-        "mean_iou": round(float(best.mean()) if best.numel() else 0.0, 4),
-        "tp": int(tp), "fp": int(fp), "fn": int(fn),
-        "gt_instances": int(n_gt), "pred_instances": int(n_pred),
-    }
+    result = scored(gt, pred, device)
+    del result["ok"]
+    return result
 
 
 def _device_record(device) -> dict:

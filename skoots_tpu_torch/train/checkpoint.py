@@ -13,10 +13,10 @@ from skoots_tpu_torch.models.registry import load_flax_params
 __all__ = ["MAGIC", "load_checkpoint", "save_checkpoint", "restore_params"]
 
 
-def restore_params(model, params_np: dict):
+def restore_params(model, state_dict: dict):
     """Copy a flax parameter tree (``load_checkpoint(path)['params']``) into
     ``model`` and return it. As JAX's (flax's ``from_state_dict`` on a
     template), every leaf must map onto a parameter of the same shape and
     every parameter must be filled; the model carries its weights, so it
     takes the template's place."""
-    return load_flax_params(model, params_np)
+    return load_flax_params(model, state_dict)

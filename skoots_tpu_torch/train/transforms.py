@@ -74,7 +74,7 @@ def map_coordinates(vol: torch.Tensor, coords: List[torch.Tensor], order: int) -
 
 def _warp_volume(vol: torch.Tensor, disp_full: torch.Tensor, order: int) -> torch.Tensor:
     """Sample ``vol`` at (voxel coordinates + ``disp_full`` ``[X, Y, Z, 3]``)."""
-    src = coordinate_mesh(vol.shape, vol.device) + disp_full
+    src = coordinate_mesh(vol.shape, device=vol.device) + disp_full
     coords = [src[..., i].reshape(-1) for i in range(3)]
     return map_coordinates(vol, coords, order).reshape(vol.shape)
 
@@ -170,7 +170,7 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
             scale = uniform(gen, *A["AFFINE_SCALE"])
             mat = _affine_matrix(angle, shear, scale, (spatial[0] / 2.0, spatial[1] / 2.0))
             inv = torch.linalg.inv(mat).to(dev)
-            mesh = coordinate_mesh(spatial, dev)
+            mesh = coordinate_mesh(spatial, device=dev)
             xy1 = torch.stack([mesh[..., 0], mesh[..., 1], torch.ones_like(mesh[..., 0])], -1)
             src = xy1 @ inv.T
             coords = [src[..., 0].reshape(-1), src[..., 1].reshape(-1),

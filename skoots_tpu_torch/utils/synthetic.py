@@ -360,7 +360,7 @@ def perfect_prediction(
     lab = torch.from_numpy(np.ascontiguousarray(labels, dtype=np.int32)).to(device)
     with torch.no_grad():
         baked = bake_skeleton(lab, packed, average=False)
-        diff = (baked - coordinate_mesh(labels.shape, device)).cpu().numpy()
+        diff = (baked - coordinate_mesh(labels.shape, device=device)).cpu().numpy()
         skel_mask = skeleton_to_mask(packed, labels.shape, radius=2,
                                      flank_radius=1).cpu().numpy()
     vec = diff / np.asarray(vector_scale, np.float32)

@@ -57,7 +57,10 @@ EXPECTED = {"skoots_tpu_torch.infer.engine", "skoots_tpu_torch.kernels.upsample"
             "skoots_tpu_torch.models.spatial_embedding", "skoots_tpu_torch.infer.autoknobs",
             "skoots_tpu_torch.config", "skoots_tpu_torch.tools.bigvol_proof",
             "skoots_tpu_torch.tools.seam_bench_agreement",
-            "skoots_tpu_torch.tools.bench_tail_head"}
+            "skoots_tpu_torch.tools.bench_tail_head", "skoots_tpu_torch.tools.convergence",
+            "skoots_tpu_torch.tools.score_checkpoint",
+            "skoots_tpu_torch.tools.calibrate_sparse_ckpt",
+            "skoots_tpu_torch.tools.skeleton_quality"}
 
 
 def test_every_module_imports_without_jax_pil_yaml_msgpack():
