@@ -24,12 +24,13 @@ labels after CC, to 16 bits when the count fits.
 
 PyTorch runs eagerly, so where the JAX package chunks jitted dispatches the
 port simply loops; phase timings synchronise the device at the phase ends.
+Each ``run()`` is the root span ``seg.block`` of ``utils/trace.py``, its
+phases, forward tiles and allocator releases spans inside it.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -45,6 +46,7 @@ from skoots_tpu_torch.ops.flood_fill import (
 )
 from skoots_tpu_torch.ops.morphology import binary_dilation, binary_dilation_2d
 from skoots_tpu_torch.ops.vec2embed import fma, vector_to_embedding
+from skoots_tpu_torch.utils import trace
 from skoots_tpu_torch.utils.device import resolve_device
 
 
@@ -79,7 +81,7 @@ def normalized_reflect_pad(volume: torch.Tensor, mean: float, std: float, pads,
     after it still their interior, as the chain of ``index_select`` does).
     The padded volume is the only f32 volume held; a whole-volume chain
     would leave each of its f32 intermediates in the allocator's cache."""
-    src = volume.to(device)
+    src = trace.to_device(volume, device, "forward.volume_h2d")
     shape = tuple(src.shape)
     buf = torch.empty(tuple(d + lo + hi for d, (lo, hi) in zip(shape, pads)),
                       dtype=torch.float32, device=device)
@@ -137,6 +139,7 @@ def make_compact_assign_tile(a_crop, volume_shape, scale_arr, n: int,
 
     def assign(vtile, fg, labels, o):
         flat_vec = vtile.reshape(-1, 3)
+        trace.host_sync("assign.nonzero", device)
         sel = torch.nonzero(fg.reshape(-1)).squeeze(1)
         r = sel % (ay * az)
         coord = torch.stack([sel // (ay * az), r // az, r % az], -1).float()
@@ -147,6 +150,7 @@ def make_compact_assign_tile(a_crop, volume_shape, scale_arr, n: int,
             idx = torch.round(cur).to(torch.int64).clamp(
                 min=torch.zeros_like(sizes), max=sizes - 1)
             cur = fma(flat_vec[(idx * strides).sum(-1)], scale_v * step, cur)
+        trace.host_sync("assign.origin_h2d", device)
         g = torch.round(cur).to(torch.int64) + torch.as_tensor(o, device=device)
         vals = labels[g[:, 0].clamp(0, x - 1), g[:, 1].clamp(0, y - 1),
                       g[:, 2].clamp(0, z - 1)]
@@ -169,28 +173,11 @@ def _tile_grid(volume_shape, crop, overlap):
 
 
 def _phase_clock(run, device):
-    """Start ``run.last_phase_s``; returns ``mark(tag)``, which synchronises
-    the device and records the seconds since the previous mark."""
-    timing = os.environ.get("SKOOTS_PHASE_TIMING")
-    run.last_phase_s = {}
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    sync()
-    t0 = time.time()
-
-    def mark(tag):
-        nonlocal t0
-        sync()
-        t1 = time.time()
-        run.last_phase_s[tag] = round(t1 - t0, 3)
-        if timing:
-            print(f"# phase {tag}: {t1 - t0:.2f}s", flush=True)
-        t0 = t1
-
-    return mark
+    """``run.last_phase_s``'s clock (:class:`~skoots_tpu_torch.utils.trace.PhaseClock`),
+    synchronising ``device`` at each phase's end; the phases are the spans
+    ``seg.<phase>``."""
+    return trace.PhaseClock(
+        run, "seg", lambda: trace.synchronize(device, "phase_clock.synchronize"))
 
 
 def _assign_plan(volume_shape, assign_crop, vector_scale, n, decay,
@@ -216,6 +203,7 @@ def _dense_assign(vtile, fg, labels, o, volume_shape, vector_scale, n, decay,
         vector_scale, vtile[None], n=n, decay=decay,
         exit_fraction=exit_fraction, exit_cycle=exit_cycle,
         compact_div=compact_div)[0]
+    trace.host_sync("assign.origin_h2d", vtile.device)
     emb = emb + torch.tensor(o, dtype=torch.float32, device=vtile.device)
     idx = torch.round(emb).to(torch.int64)
     tile_inst = labels[idx[..., 0].clamp(0, x - 1), idx[..., 1].clamp(0, y - 1),
@@ -239,13 +227,14 @@ def _forward_sweep(model, volume, mean, std, crop, pads, origins, interior,
     vec_buf = torch.zeros((*padded, 3), dtype=dtype, device=device)
     skel_buf = torch.zeros(padded, dtype=torch.uint8, device=device)
     for o in origins:
-        tile = vol[tuple(slice(oo, oo + c) for oo, c in zip(o, crop))]
-        out = model(tile[None, ..., None])[0]
-        vec, skel_u8, sem_u8 = tile_masks(out, prob_threshold, sem_thr,
-                                          dilation_3d, dilation_2d)
-        dst = tuple(slice(oo + s.start, oo + s.stop) for oo, s in zip(o, interior))
-        vec_buf[dst] = vec[interior].to(dtype)
-        skel_buf[dst] = (skel_u8 | (sem_u8 << 1))[interior]
+        with trace.span("seg.tile"):
+            tile = vol[tuple(slice(oo, oo + c) for oo, c in zip(o, crop))]
+            out = model(tile[None, ..., None])[0]
+            vec, skel_u8, sem_u8 = tile_masks(out, prob_threshold, sem_thr,
+                                              dilation_3d, dilation_2d)
+            dst = tuple(slice(oo + s.start, oo + s.stop) for oo, s in zip(o, interior))
+            vec_buf[dst] = vec[interior].to(dtype)
+            skel_buf[dst] = (skel_u8 | (sem_u8 << 1))[interior]
     del vol
     trim = tuple(slice(p[0], p[0] + d) for p, d in zip(pads, volume.shape))
     return vec_buf[trim], skel_buf[trim]
@@ -308,26 +297,27 @@ def make_device_pipeline(
     a_origins = crop_origins((x, y, z), crop, (0, 0, 0))
 
     @torch.no_grad()
+    @trace.spanned("seg.block", root=True)
     def run(volume, mean, std):
-        mark = _phase_clock(run, device)
-        vec_full, skel_full = _forward_sweep(
-            model, volume, mean, std, crop, pads, origins, interior, dtype,
-            prob_threshold, prob_threshold, 1, 2, device)
-        mark("1-forward")
+        phase = _phase_clock(run, device)
+        with phase("1-forward"):
+            vec_full, skel_full = _forward_sweep(
+                model, volume, mean, std, crop, pads, origins, interior, dtype,
+                prob_threshold, prob_threshold, 1, 2, device)
 
-        labels = cc(skel_full & 1, max_rounds=cc_rounds)
-        run.last_cc_rounds = cc.last_rounds
-        run.last_cc_converged = cc.last_converged
-        mark("2-cc")
+        with phase("2-cc"):
+            labels = cc(skel_full & 1, max_rounds=cc_rounds)
+            run.last_cc_rounds = cc.last_rounds
+            run.last_cc_converged = cc.last_converged
 
-        inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
-        for o in a_origins:
-            sl = tuple(slice(oo, oo + c) for oo, c in zip(o, crop))
-            inst[sl] = _dense_assign(
-                vec_full[sl].float(), (skel_full[sl] >> 1) > 0, labels, o,
-                (x, y, z), vector_scale, embed_iterations, 1.0,
-                embed_exit_fraction, embed_exit_cycle, embed_compact_div)
-        mark("3-assign")
+        with phase("3-assign"):
+            inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
+            for o in a_origins:
+                sl = tuple(slice(oo, oo + c) for oo, c in zip(o, crop))
+                inst[sl] = _dense_assign(
+                    vec_full[sl].float(), (skel_full[sl] >> 1) > 0, labels, o,
+                    (x, y, z), vector_scale, embed_iterations, 1.0,
+                    embed_exit_fraction, embed_exit_cycle, embed_compact_div)
         return inst
 
     run.last_phase_s = {}
@@ -402,46 +392,47 @@ def make_chunked_pipeline(
         embed_decay, embed_compact_div and semantic_gate, device)
 
     @torch.no_grad()
+    @trace.spanned("seg.block", root=True)
     def run(volume, mean, std):
-        mark = _phase_clock(run, device)
-        _release_cache(device)
-        vec_full, skel_full = _forward_sweep(
-            model, volume, mean, std, crop, pads, origins, interior, dtype,
-            prob_threshold, sem_thr, dilation_3d, dilation_2d, device)
-        _release_cache(device)
-        mark("1-forward")
+        phase = _phase_clock(run, device)
+        with phase("1-forward"):
+            _release_cache(device)
+            vec_full, skel_full = _forward_sweep(
+                model, volume, mean, std, crop, pads, origins, interior, dtype,
+                prob_threshold, sem_thr, dilation_3d, dilation_2d, device)
+            _release_cache(device)
 
-        sparse_ok = False
-        run.last_sparse_cc = None
-        if use_sparse_cc:
-            labels, sparse_ok = label_components_sparse(skel_full & 1, n_max=cc_n_max)
-            run.last_sparse_cc = dict(label_components_sparse.last_stats, ok=sparse_ok)
-        if sparse_ok:
-            run.last_cc_impl = "sparse"
-            run.last_cc_rounds = run.last_sparse_cc["rounds"]
-            run.last_cc_converged = True
-        else:
-            labels = None  # a failed sparse attempt's labels go before the dense CC
-            labels = stepped_cc(skel_full & 1, max_rounds=cc_rounds)
-            run.last_cc_impl = "dense"
-            run.last_cc_rounds = stepped_cc.last_rounds
-            run.last_cc_converged = stepped_cc.last_converged
-        _release_cache(device)
-        mark("2-cc")
+        with phase("2-cc"):
+            sparse_ok = False
+            run.last_sparse_cc = None
+            if use_sparse_cc:
+                labels, sparse_ok = label_components_sparse(skel_full & 1, n_max=cc_n_max)
+                run.last_sparse_cc = dict(label_components_sparse.last_stats, ok=sparse_ok)
+            if sparse_ok:
+                run.last_cc_impl = "sparse"
+                run.last_cc_rounds = run.last_sparse_cc["rounds"]
+                run.last_cc_converged = True
+            else:
+                labels = None  # a failed sparse attempt's labels go before the dense CC
+                labels = stepped_cc(skel_full & 1, max_rounds=cc_rounds)
+                run.last_cc_impl = "dense"
+                run.last_cc_rounds = stepped_cc.last_rounds
+                run.last_cc_converged = stepped_cc.last_converged
+            _release_cache(device)
 
-        inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
-        for o in a_origins:
-            sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
-            vtile = vec_full[sl].float()
-            fg = (skel_full[sl] >> 1) > 0
-            if compact_assign is not None:
-                inst[sl] = compact_assign(vtile, fg, labels, o)
-                continue
-            inst[sl] = _dense_assign(
-                vtile, fg if semantic_gate else None, labels, o, (x, y, z),
-                vector_scale, embed_iterations, embed_decay,
-                embed_exit_fraction, embed_exit_cycle, embed_compact_div)
-        mark("3-assign")
+        with phase("3-assign"):
+            inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
+            for o in a_origins:
+                sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
+                vtile = vec_full[sl].float()
+                fg = (skel_full[sl] >> 1) > 0
+                if compact_assign is not None:
+                    inst[sl] = compact_assign(vtile, fg, labels, o)
+                    continue
+                inst[sl] = _dense_assign(
+                    vtile, fg if semantic_gate else None, labels, o, (x, y, z),
+                    vector_scale, embed_iterations, embed_decay,
+                    embed_exit_fraction, embed_exit_cycle, embed_compact_div)
         return inst
 
     run.last_phase_s = {}
@@ -464,9 +455,11 @@ def _release_cache(device: torch.device) -> None:
     """Hand the caching allocator's unused blocks back to the card, so the
     buffers a phase keeps get segments of their own instead of splitting
     the blocks the previous phase's tiles left, which can strand the free
-    memory a later tile needs."""
+    memory a later tile needs. The span ``seg.release_cache``."""
     if device.type == "cuda":
-        torch.cuda.empty_cache()
+        with trace.span("seg.release_cache"):
+            trace.count("host_sync", "release_cache.empty_cache")
+            torch.cuda.empty_cache()
 
 
 def make_thrifty_pipeline(
@@ -537,61 +530,64 @@ def make_thrifty_pipeline(
         return model(((widen_u16(tile).float() - mean) / std)[None, ..., None])[0]
 
     @torch.no_grad()
+    @trace.spanned("seg.block", root=True)
     def run(volume, mean, std):
-        mark = _phase_clock(run, device)
+        phase = _phase_clock(run, device)
         mean, std = float(mean), float(std)
-        _release_cache(device)
-        if not torch.is_tensor(volume):
-            volume = torch.from_numpy(np.ascontiguousarray(volume))
-        vol = volume.to(device)  # native dtype; a uint16 one pads as int16
-        if vol.dtype == torch.uint16:
-            vol = reflect_pad(vol.view(torch.int16), pads).view(torch.uint16)
-        else:
-            vol = reflect_pad(vol, pads)
-        skel_buf = torch.zeros((px, py, pz), dtype=torch.uint8, device=device)
-        for o in origins:
-            out = forward(vol[o[0]:o[0] + cx, o[1]:o[1] + cy, o[2]:o[2] + cz],
-                          mean, std)
-            _, skel_u8, _ = tile_masks(out, prob_threshold, sem_thr,
-                                       dilation_3d, dilation_2d)
-            dst = tuple(slice(oo + s.start, oo + s.stop)
-                        for oo, s in zip(o, interior))
-            skel_buf[dst] = skel_u8[interior]
-        _release_cache(device)
-        mark("1-forward")
+        with phase("1-forward"):
+            _release_cache(device)
+            if not torch.is_tensor(volume):
+                volume = torch.from_numpy(np.ascontiguousarray(volume))
+            # native dtype; a uint16 one pads as int16
+            vol = trace.to_device(volume, device, "forward.volume_h2d")
+            if vol.dtype == torch.uint16:
+                vol = reflect_pad(vol.view(torch.int16), pads).view(torch.uint16)
+            else:
+                vol = reflect_pad(vol, pads)
+            skel_buf = torch.zeros((px, py, pz), dtype=torch.uint8, device=device)
+            for o in origins:
+                with trace.span("seg.tile"):
+                    out = forward(vol[o[0]:o[0] + cx, o[1]:o[1] + cy, o[2]:o[2] + cz],
+                                  mean, std)
+                    _, skel_u8, _ = tile_masks(out, prob_threshold, sem_thr,
+                                               dilation_3d, dilation_2d)
+                    dst = tuple(slice(oo + s.start, oo + s.stop)
+                                for oo, s in zip(o, interior))
+                    skel_buf[dst] = skel_u8[interior]
+            _release_cache(device)
 
-        skel = skel_buf[tuple(slice(p, p + d) for p, d in zip(lo, (x, y, z)))]
-        del skel_buf  # the CC takes a contiguous mask as its fg
-        labels = stepped_cc(skel, max_rounds=cc_rounds)
-        del skel
-        run.last_cc_rounds = stepped_cc.last_rounds
-        run.last_cc_converged = stepped_cc.last_converged
-        # held in 16 bits when N fits; gathered and written through the
-        # int16 view, which every device's kernels take, viewed as uint16
-        # on return
-        labels, n = _compact_labels(labels, narrow16=True)
-        run.last_count = n
-        _release_cache(device)
-        mark("2-cc")
+        with phase("2-cc"):
+            skel = skel_buf[tuple(slice(p, p + d) for p, d in zip(lo, (x, y, z)))]
+            del skel_buf  # the CC takes a contiguous mask as its fg
+            labels = stepped_cc(skel, max_rounds=cc_rounds)
+            del skel
+            run.last_cc_rounds = stepped_cc.last_rounds
+            run.last_cc_converged = stepped_cc.last_converged
+            # held in 16 bits when N fits; gathered and written through the
+            # int16 view, which every device's kernels take, viewed as uint16
+            # on return
+            labels, n = _compact_labels(labels, narrow16=True)
+            run.last_count = n
+            _release_cache(device)
 
-        inst = torch.zeros((x, y, z), dtype=labels.dtype, device=device)
-        for o in a_origins:
-            sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
-            out = forward(vol[tuple(slice(oo + p, oo + p + c)
-                                    for oo, p, c in zip(o, lo, a_crop))],
-                          mean, std)
-            prob = out[..., 4]
-            keep = (prob > prob_threshold).to(out.dtype)[..., None]
-            vtile = (out[..., 0:3] * keep).to(torch.float16).float()
-            fg = prob > sem_thr
-            if compact_assign is not None:
-                inst[sl] = compact_assign(vtile, fg, labels, o)
-                continue
-            inst[sl] = _dense_assign(
-                vtile, fg if semantic_gate else None, labels, o, (x, y, z),
-                vector_scale, embed_iterations, embed_decay,
-                embed_exit_fraction, embed_exit_cycle, embed_compact_div)
-        mark("3-assign")
+        with phase("3-assign"):
+            inst = torch.zeros((x, y, z), dtype=labels.dtype, device=device)
+            for o in a_origins:
+                sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
+                out = forward(vol[tuple(slice(oo + p, oo + p + c)
+                                        for oo, p, c in zip(o, lo, a_crop))],
+                              mean, std)
+                prob = out[..., 4]
+                keep = (prob > prob_threshold).to(out.dtype)[..., None]
+                vtile = (out[..., 0:3] * keep).to(torch.float16).float()
+                fg = prob > sem_thr
+                if compact_assign is not None:
+                    inst[sl] = compact_assign(vtile, fg, labels, o)
+                    continue
+                inst[sl] = _dense_assign(
+                    vtile, fg if semantic_gate else None, labels, o, (x, y, z),
+                    vector_scale, embed_iterations, embed_decay,
+                    embed_exit_fraction, embed_exit_cycle, embed_compact_div)
         return inst.view(torch.uint16) if inst.dtype == torch.int16 else inst
 
     run.last_phase_s = {}

@@ -21,7 +21,6 @@ walk treats z as the batch axis.
 from __future__ import annotations
 
 import os
-import time
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -35,6 +34,7 @@ from skoots_tpu_torch.ops.flood_fill import (
     renumber,
 )
 from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
+from skoots_tpu_torch.utils import trace
 from skoots_tpu_torch.utils.device import resolve_device
 
 # spaced voxels of one group's stepped CC: its int32 voxel addresses stay
@@ -114,46 +114,46 @@ def perslice_segment(
     renumber to 1..N. Returns ``[X, Y, Z]`` int32.
     ``perslice_segment.last_phase_s`` holds the seconds of the last call's
     ``assign`` (the slices' CC, walk and gather, with the transfers) and
-    ``stitch`` (the union-find, speck filter and renumber on the host)."""
+    ``stitch`` (the union-find, speck filter and renumber on the host), the
+    spans ``perslice.assign`` and ``perslice.stitch``."""
     device = resolve_device(device)
-    t0 = time.time()
-    x, y, z = skeleton.shape
-    vec2 = np.ascontiguousarray(np.moveaxis(np.asarray(vectors)[..., :2], 2, 0))
-    skel_z = np.ascontiguousarray(np.moveaxis(np.asarray(skeleton) > 0, 2, 0))
-    sem_z = np.ascontiguousarray(np.moveaxis(np.asarray(semantic) > 0, 2, 0))
-    with torch.no_grad():
-        inst = _perslice_assign(
-            torch.from_numpy(vec2).to(device), torch.from_numpy(skel_z).to(device),
-            torch.from_numpy(sem_z).to(device), tuple(vector_scale[:2]),
-            embed_iterations)
-        inst_z = inst.cpu().numpy().astype(np.int64)
-    del inst
-    t1 = time.time()
+    phase = trace.PhaseClock(perslice_segment, "perslice")
+    with phase("assign"):
+        x, y, z = skeleton.shape
+        vec2 = np.ascontiguousarray(np.moveaxis(np.asarray(vectors)[..., :2], 2, 0))
+        skel_z = np.ascontiguousarray(np.moveaxis(np.asarray(skeleton) > 0, 2, 0))
+        sem_z = np.ascontiguousarray(np.moveaxis(np.asarray(semantic) > 0, 2, 0))
+        with torch.no_grad():
+            inst = _perslice_assign(
+                torch.from_numpy(vec2).to(device), torch.from_numpy(skel_z).to(device),
+                torch.from_numpy(sem_z).to(device), tuple(vector_scale[:2]),
+                embed_iterations)
+            inst_z = inst.cpu().numpy().astype(np.int64)
+        del inst
 
-    # globally unique ids: slice-local labels are raveled 2D indices + 1
-    span = x * y + 1
-    inst_z += (np.arange(z, dtype=np.int64) * span)[:, None, None] * (inst_z > 0)
+    with phase("stitch"):
+        # globally unique ids: slice-local labels are raveled 2D indices + 1
+        span = x * y + 1
+        inst_z += (np.arange(z, dtype=np.int64) * span)[:, None, None] * (inst_z > 0)
 
-    # stitch: same-position overlap between consecutive slices
-    uf = _UnionFind()
-    for k in range(z - 1):
-        a, b = inst_z[k], inst_z[k + 1]
-        m = (a > 0) & (b > 0)
-        if m.any():
-            for pa, pb in np.unique(np.stack([a[m], b[m]], axis=1), axis=0):
-                uf.union(int(pa), int(pb))
-    if uf.parent:
-        keys = np.fromiter(uf.parent.keys(), dtype=np.int64)
-        roots = np.array([uf.find(int(k)) for k in keys], dtype=np.int64)
-        changed = keys != roots
-        if changed.any():
-            inst_z = remap_labels(inst_z, keys[changed], roots[changed])
+        # stitch: same-position overlap between consecutive slices
+        uf = _UnionFind()
+        for k in range(z - 1):
+            a, b = inst_z[k], inst_z[k + 1]
+            m = (a > 0) & (b > 0)
+            if m.any():
+                for pa, pb in np.unique(np.stack([a[m], b[m]], axis=1), axis=0):
+                    uf.union(int(pa), int(pb))
+        if uf.parent:
+            keys = np.fromiter(uf.parent.keys(), dtype=np.int64)
+            roots = np.array([uf.find(int(k)) for k in keys], dtype=np.int64)
+            changed = keys != roots
+            if changed.any():
+                inst_z = remap_labels(inst_z, keys[changed], roots[changed])
 
-    out = np.moveaxis(inst_z, 0, 2)  # [X, Y, Z]
-    out, _ = drop_small_instances(out, min_instance_size)
-    out, _ = renumber(out)
-    perslice_segment.last_phase_s = {"assign": round(t1 - t0, 3),
-                                     "stitch": round(time.time() - t1, 3)}
+        out = np.moveaxis(inst_z, 0, 2)  # [X, Y, Z]
+        out, _ = drop_small_instances(out, min_instance_size)
+        out, _ = renumber(out)
     return out.astype(np.int32)
 
 

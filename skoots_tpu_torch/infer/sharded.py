@@ -43,7 +43,6 @@ import copy
 import logging
 import math
 import os
-import time
 import warnings
 from typing import List, Optional, Sequence, Tuple
 
@@ -57,6 +56,7 @@ from skoots_tpu_torch.ops.flood_fill import _axis_run_max
 from skoots_tpu_torch.ops.morphology import binary_dilation, binary_dilation_2d
 from skoots_tpu_torch.ops.vec2embed import fma
 from skoots_tpu_torch.parallel.mesh import split_to
+from skoots_tpu_torch.utils import trace
 
 log = logging.getLogger(__name__)
 
@@ -536,8 +536,7 @@ def make_sharded_assign(
 
 def _sync(devices) -> None:
     for d in {torch.device(d) for d in devices}:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
+        trace.synchronize(d, "phase_clock.synchronize")
 
 
 def make_sharded_pipeline(
@@ -585,7 +584,8 @@ def make_sharded_pipeline(
     each halo exchange in a round) and ``run.assign(labels, vec, packed) ->
     int32 slabs``; ``run.bounds`` is the slab layout of the padded X axis,
     ``run.padded_shape`` the padded shape, ``run.last_phase_s`` the
-    ``fwd`` / ``cc`` / ``assign`` seconds of the last call.
+    ``fwd`` / ``cc`` / ``assign`` seconds of the last call (the spans
+    ``sharded.fwd`` / ``.cc`` / ``.assign``).
     """
     x, y, z = volume_shape
     devices = _space_devices(mesh)
@@ -771,24 +771,14 @@ def make_sharded_pipeline(
         return Slabs(out, 0)
 
     def run(volume, mean, std):
-        run.last_phase_s = {}
         vol = np.pad(np.asarray(volume, np.float32), pads, mode="reflect")
-        _sync(devices)
-        t0 = time.time()
-
-        def mark(tag):
-            nonlocal t0
-            _sync(devices)
-            t1 = time.time()
-            run.last_phase_s[tag] = round(t1 - t0, 3)
-            t0 = t1
-
-        vec, packed = fwd(shard_volume(vol, mesh, 0, bounds), mean, std)
-        mark("fwd")
-        labels = cc(packed)
-        mark("cc")
-        inst = assign(labels, vec, packed)
-        mark("assign")
+        phase = trace.PhaseClock(run, "sharded", lambda: _sync(devices))
+        with phase("fwd"):
+            vec, packed = fwd(shard_volume(vol, mesh, 0, bounds), mean, std)
+        with phase("cc"):
+            labels = cc(packed)
+        with phase("assign"):
+            inst = assign(labels, vec, packed)
         return inst.whole("cpu").numpy()[:x, :y, :z]
 
     run.fwd, run.cc, run.assign = fwd, cc, assign

@@ -44,6 +44,7 @@ from skoots_tpu_torch.kernels.dwconv import dwconv3d
 from skoots_tpu_torch.kernels.lnhead import ln_head, ln_head_eligible
 from skoots_tpu_torch.kernels.mlp import mlp_block_tail, mlp_tail_eligible
 from skoots_tpu_torch.kernels.upsample import upsample2x
+from skoots_tpu_torch.utils import trace
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -347,7 +348,7 @@ class DropPathMasks:
         size = len(m) if self.size is None else self.size
         if size != batch:
             raise ValueError(f"DropPath masks for {size} samples, the block has {batch}")
-        return m[self.start:self.start + size].to(device)
+        return trace.to_device(m[self.start:self.start + size], device, "drop_path.mask_h2d")
 
 
 def _drop_keep(gen, module: nn.Module, rate: float,
@@ -360,7 +361,8 @@ def _drop_keep(gen, module: nn.Module, rate: float,
         return None
     if isinstance(gen, DropPathMasks):
         return gen.next(batch, device)
-    return (torch.rand(batch, generator=gen) < 1.0 - rate).to(device)
+    return trace.to_device(torch.rand(batch, generator=gen) < 1.0 - rate, device,
+                           "drop_path.mask_h2d")
 
 
 class UNeXT3D(nn.Module):

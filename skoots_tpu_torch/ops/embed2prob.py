@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from skoots_tpu_torch.utils import trace
+
 
 def baked_embed_to_prob(
     embedding: torch.Tensor,
@@ -19,6 +21,7 @@ def baked_embed_to_prob(
     """``embedding`` and ``baked_skeletons`` ``[B, *spatial, D]``; ``sigma``
     per-axis bandwidth ``(D,)``. Returns ``[B, *spatial, 1]`` f32
     probabilities in (0, 1]."""
+    trace.host_sync("embed_prob.sigma_h2d", embedding.device)
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=embedding.device) + eps
     denom = sigma * sigma * -2.0
     diff = embedding.float() - baked_skeletons.float()

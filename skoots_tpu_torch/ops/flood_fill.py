@@ -40,6 +40,7 @@ import torch
 
 from skoots_tpu_torch.kernels.propagate import propagate
 from skoots_tpu_torch.ops.cropper import crop_origins, effective_crop_size
+from skoots_tpu_torch.utils import trace
 
 
 def _check_connectivity(connectivity: int) -> None:
@@ -226,6 +227,7 @@ def _stepped_labeller(shape, rounds_per_dispatch, connectivity, propagates_per_r
                     labels, scratch = scratch, labels
             rounds += rounds_per_dispatch
             new_total = _label_sum(labels)
+            trace.host_sync("cc.poll", labels.device)
             changed = bool(new_total != total)
             total = new_total
             if not changed:
@@ -273,7 +275,9 @@ def label_components_sparse(binary: torch.Tensor, n_max: int,
     offs = _forward_offsets(connectivity)
     dev = binary.device
     flat = (binary > 0).reshape(-1)
+    trace.host_sync("sparse_cc.count", dev)
     count = int(flat.sum())
+    trace.host_sync("sparse_cc.nonzero", dev)
     found = torch.nonzero(flat).squeeze(1)[:n_max].to(torch.int32)
     idx = torch.full((n_max,), total, dtype=torch.int32, device=dev)
     idx[:found.numel()] = found
@@ -298,8 +302,10 @@ def label_components_sparse(binary: torch.Tensor, n_max: int,
     ea, eb = ea.view(-1), eb.view(-1)
     m_max = 4 * n_max
     em = (ea > 0) | (eb > 0)
+    trace.host_sync("sparse_cc.count", dev)
     edge_count = int(em.sum())
     eidx = torch.zeros(m_max, dtype=torch.int64, device=dev)
+    trace.host_sync("sparse_cc.nonzero", dev)
     sel = torch.nonzero(em).squeeze(1)[:m_max]
     eidx[:sel.numel()] = sel
     del em, sel
@@ -317,13 +323,16 @@ def label_components_sparse(binary: torch.Tensor, n_max: int,
         del lo, hi
         new = new.index_select(0, new)
         new = new.index_select(0, new)
+        trace.host_sync("sparse_cc.poll", dev)
         changed = bool((new != par).any())
         par = new
         if not changed:
             break
 
     out = torch.zeros(total, dtype=torch.int32, device=dev)
+    trace.host_sync("sparse_cc.mask_select", dev)
     keep = idx[valid].long()
+    trace.host_sync("sparse_cc.mask_select", dev)
     out[keep] = idx.index_select(0, par)[valid] + 1
     ok = count <= n_max and edge_count <= m_max and not changed
     label_components_sparse.last_stats = {"points": count, "edges": edge_count,
@@ -410,6 +419,7 @@ def _compact_labels(labels: torch.Tensor,
     for s, e in _slabs(flat.numel()):
         seg = flat[s:e]
         iota = torch.arange(s + 1, e + 1, dtype=torch.int32, device=flat.device)
+        trace.host_sync("compact_labels.mask_select", flat.device)
         roots.append(iota[seg == iota])
     roots = torch.cat(roots)
     n = int(roots.numel())

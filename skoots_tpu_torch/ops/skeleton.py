@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from skoots_tpu_torch.kernels.bake import bake_skeleton_kernel
+from skoots_tpu_torch.utils import trace
 
 
 class PackedSkeletons(NamedTuple):
@@ -126,15 +127,19 @@ def skeleton_to_mask(
     a stamp voxel at ``-size <= i < 0`` wraps to ``i + size``, one further
     out or at ``i >= size`` is dropped."""
     dev = skeletons.points.device
-    offs = torch.from_numpy(_disk_offsets(radius, flank_radius)).to(dev)
+    offs = trace.to_device(torch.from_numpy(_disk_offsets(radius, flank_radius)), dev,
+                           "skeleton_mask.offsets_h2d")
     pts = torch.round(skeletons.points).to(torch.int64)
     coords = (pts[:, None, :] + offs[None, :, :].to(torch.int64)).reshape(-1, 3)
     valid = (skeletons.ids != 0)[:, None].expand(-1, offs.shape[0]).reshape(-1)
+    trace.host_sync("skeleton_mask.shape_h2d", dev)
     lim = torch.tensor(shape, dtype=torch.int64, device=dev)
     coords = torch.where(coords < 0, coords + lim, coords)
     valid = valid & ((coords >= 0) & (coords < lim)).all(-1)
+    trace.host_sync("skeleton_mask.mask_select", dev)
     coords = coords[valid]
     mask = torch.zeros(shape, dtype=torch.float32, device=dev)
+    trace.host_sync("skeleton_mask.value_h2d", dev)
     mask[coords[:, 0], coords[:, 1], coords[:, 2]] = 1.0
     return mask
 

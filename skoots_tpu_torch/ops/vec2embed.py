@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from skoots_tpu_torch.utils import trace
+
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a * b + c`` rounded ONCE (a fused multiply-add), exactly: the
@@ -58,9 +60,11 @@ def _setup(scale, vector):
     d = vector.shape[-1]
     dev = vector.device
     mesh = coordinate_mesh(spatial, device=dev)[None]
+    trace.host_sync("vec2embed.scale_h2d", dev)
     scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
     vec = vector.float()
     embed = fma(vec, scale.view((1,) * (len(spatial) + 1) + (d,)), mesh)
+    trace.host_sync("vec2embed.sizes_h2d", dev)
     sizes = torch.tensor(spatial, dtype=torch.int64, device=dev)
     strides = torch.ones(len(spatial), dtype=torch.int64, device=dev)
     for i in range(len(spatial) - 2, -1, -1):
@@ -80,6 +84,7 @@ def _vec2embed(scale, vector, n: int, decay: float = 1.0) -> torch.Tensor:
     flat_vec = vec.reshape(b, -1, d)
     # the JAX walk takes ``decay`` as a traced f32 scalar, so the step
     # factor accumulates in f32 here (the other walks use Python floats)
+    trace.host_sync("vec2embed.decay_h2d", vector.device)
     decay32 = torch.tensor(decay, dtype=torch.float32, device=vector.device)
     step = torch.ones((), dtype=torch.float32, device=vector.device)
     for _ in range(n - 1):
@@ -97,6 +102,7 @@ def _vec2embed_compact(scale, vector, n: int, decay: float = 1.0) -> torch.Tenso
         v *= s
     flat_vec = vec.reshape(-1, d)
     emb_flat = embed.reshape(-1, d).clone()
+    trace.host_sync("vec2embed.nonzero", flat_vec.device)
     sel = torch.nonzero((flat_vec != 0).any(-1)).squeeze(1)
     base = (sel // v) * v  # batch-local gathers stay in their batch
     cur = emb_flat[sel]
@@ -130,6 +136,7 @@ def _vec2embed_early(scale, vector, n: int, decay: float, exit_fraction: float,
         if exit_cycle:
             moved = moved & (idx != prev2_idx)  # period-2 = converged
         prev2_idx, prev_idx = prev_idx, idx
+        trace.host_sync("vec2embed.poll", moved.device)
         if float(moved.sum()) <= min_moving:
             break
     return embed

@@ -29,6 +29,7 @@ from skoots_tpu_torch.train.generate_skeletons import (
     load_skeletons,
     save_skeletons,
 )
+from skoots_tpu_torch.utils import trace
 from skoots_tpu_torch.utils.io import imread
 
 log = logging.getLogger(__name__)
@@ -258,7 +259,8 @@ def batch_iterator(dataset, batch_size: int, steps_per_epoch: int, seed: int):
 def prefetch_iterator(epoch_iter, depth: int = 2):
     """Wrap ``epoch_iter(epoch)`` so host batches are made on a background
     thread up to ``depth`` ahead of the consumer; an error in the producer
-    is raised on the consumer's side."""
+    is raised on the consumer's side. The consumer's wait for a batch is
+    the span ``train.data_wait``."""
 
     def wrapped(epoch: int):
         q: queue.Queue = queue.Queue(maxsize=depth)
@@ -275,7 +277,8 @@ def prefetch_iterator(epoch_iter, depth: int = 2):
         t = threading.Thread(target=produce, daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with trace.span("train.data_wait"):
+                item = q.get()
             if item is end:
                 break
             if isinstance(item, BaseException):

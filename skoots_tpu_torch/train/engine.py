@@ -49,6 +49,7 @@ from skoots_tpu_torch.ops.vec2embed import vector_to_embedding
 from skoots_tpu_torch.train.losses import cfg_loss
 from skoots_tpu_torch.train.sigma import Sigma, init_sigma
 from skoots_tpu_torch.train.viz import write_progress
+from skoots_tpu_torch.utils import trace
 
 log = logging.getLogger(__name__)
 
@@ -272,7 +273,9 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
     of ``model`` (in train mode). Batch (channels-last, on the model's
     device): image ``[B, X, Y, Z, 1]`` f32 normalised, masks and
     skele_masks ``[B, X, Y, Z, 1]`` f32, baked ``[B, X, Y, Z, 3]`` f32.
-    Metrics: loss, embed, prob, skele (0-d tensors) and lr. With
+    Metrics: loss, embed, prob, skele (0-d tensors) and lr. A call is the
+    root span ``train.step``, its forward and loss, backward and update the
+    spans ``train.forward``, ``train.backward``, ``train.optimizer``. With
     ``MODEL.DROP_PATH_RATE`` > 0 the n-th call (from 0) draws its DropPath
     masks from ``drop_path_generator(TRAIN.SEED, n)``; ``loss_fn(batch,
     epoch, drop_gen=None)`` takes the generator explicitly. ``mesh``: the
@@ -307,13 +310,17 @@ def make_train_step(model, optimizer: torch.optim.Optimizer,
         optimizer.step()
         return lr
 
+    @trace.spanned("train.step", root=True)
     def step(batch, epoch: int) -> Dict[str, Any]:
         gen = drop_path_generator(seed, calls[0]) if drop else None
         calls[0] += 1
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(batch, epoch, gen)
-        total.backward()
-        metrics["lr"] = apply_update(epoch)
+        with trace.span("train.forward"):
+            total, metrics = loss_fn(batch, epoch, gen)
+        with trace.span("train.backward"):
+            total.backward()
+        with trace.span("train.optimizer"):
+            metrics["lr"] = apply_update(epoch)
         return metrics
 
     step.loss_fn = loss_fn
@@ -400,12 +407,20 @@ def train(
     epoch logs the mean losses and lr as scalars and one ``"Train"`` image
     of panels from an eval forward on the epoch's last batch
     (:func:`write_panels`), as the JAX loop does. ``AUTOGRAD_PROFILE``
-    records a ``torch.profiler`` trace to ``SAVE_PATH/torch_trace``;
-    ``AUTOGRAD_DETECT_ANOMALY`` turns on
-    ``torch.autograd.set_detect_anomaly``. ``mesh``: train data-parallel
+    records a ``torch.profiler`` trace to ``SAVE_PATH/torch_trace/trace.json``
+    with the program's spans and host syncs (``utils/trace.py``) on its
+    timeline, then drops them from memory (``trace.reset``);
+    ``AUTOGRAD_EMIT_NVTX`` runs the loop under
+    ``torch.autograd.profiler.emit_nvtx`` (ranges for an external CUDA
+    profiler; the program's spans do not record there), and the two
+    together raise ``ValueError``; ``AUTOGRAD_DETECT_ANOMALY``
+    turns on ``torch.autograd.set_detect_anomaly``. ``mesh``: train data-parallel
     over its data rows (:func:`make_train_step`); the model, the optimizer,
     validation and the panels then live on its first device."""
     t = cfg["TRAIN"]
+    if t["AUTOGRAD_PROFILE"] and t["AUTOGRAD_EMIT_NVTX"]:
+        raise ValueError("TRAIN.AUTOGRAD_PROFILE and TRAIN.AUTOGRAD_EMIT_NVTX are two "
+                         "profilers and cannot run together; set one")
     device = mesh.devices[0][0] if mesh is not None else torch.device(device)
     model = init_model(cfg, t["SEED"], device=device).train()
     ckpt = None
@@ -428,12 +443,15 @@ def train(
     save_name = os.path.join(t["SAVE_PATH"], time.strftime("%b%d_%H-%M-%S") + ".skoots")
 
     anomaly = torch.autograd.set_detect_anomaly(bool(t["AUTOGRAD_DETECT_ANOMALY"]))
+    nvtx = torch.autograd.profiler.emit_nvtx(enabled=bool(t["AUTOGRAD_EMIT_NVTX"]))
+    nvtx.__enter__()
     prof = None
     if t["AUTOGRAD_PROFILE"]:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
+        since_ns = time.time_ns()
         prof.__enter__()
     steps = 0
     means: Dict[str, float] = {}
@@ -476,9 +494,13 @@ def train(
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
-            trace = os.path.join(t["SAVE_PATH"], "torch_trace")
-            os.makedirs(trace, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(trace, "trace.json"))
-            log.info("profiler trace written to %s", trace)
+            trace_dir = os.path.join(t["SAVE_PATH"], "torch_trace")
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            trace.export_chrome(path, since_ns)
+            trace.reset()
+            log.info("profiler trace written to %s", trace_dir)
+        nvtx.__exit__(None, None, None)
         anomaly.__exit__(None, None, None)
     return TrainState(model, optimizer, steps, save_name, means)

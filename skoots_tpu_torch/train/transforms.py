@@ -38,6 +38,7 @@ from skoots_tpu_torch.ops.skeleton import (
     skeleton_to_mask,
 )
 from skoots_tpu_torch.ops.vec2embed import coordinate_mesh
+from skoots_tpu_torch.utils import trace
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +84,7 @@ def _sample_disp_at_points(disp_coarse: torch.Tensor, pts: torch.Tensor, spatial
     """Trilinear samples of the coarse ``[gx, gy, gz, 3]`` field at ``[P, 3]``
     voxel coordinates."""
     g = disp_coarse.shape[:3]
+    trace.host_sync("augment.elastic_scale_h2d", pts.device)
     scale = torch.tensor([(g[i] - 1) / max(spatial[i] - 1, 1) for i in range(3)],
                          dtype=torch.float32, device=pts.device)
     coords = list((pts * scale).T)
@@ -144,6 +146,7 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
         aux = None if aux is None else aux.float()
         pts = sample["points"].float()
         ids = sample["ids"].to(torch.int32)
+        trace.host_sync("augment.center_d2h", sample["center"].device)
         center = sample["center"].float().cpu()
         dev = image.device
         spatial = tuple(image.shape)
@@ -152,8 +155,9 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
         # upsampled; the volume is sampled at (x + d), the points move by -d
         if flag(gen, A["ELASTIC_RATE"]):
             extent = torch.tensor(spatial, dtype=torch.float32)
-            disp_coarse = (torch.rand((*grid_shape, 3), generator=gen)
-                           * grid_mag * (extent / 2.0)).to(dev)
+            disp_coarse = trace.to_device(
+                torch.rand((*grid_shape, 3), generator=gen) * grid_mag * (extent / 2.0),
+                dev, "augment.elastic_h2d")
             disp_full = F.interpolate(
                 disp_coarse.permute(3, 0, 1, 2)[None], size=spatial,
                 mode="trilinear", align_corners=False)[0].permute(1, 2, 3, 0)
@@ -169,7 +173,7 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
             shear = uniform(gen, *A["AFFINE_SHEAR"])
             scale = uniform(gen, *A["AFFINE_SCALE"])
             mat = _affine_matrix(angle, shear, scale, (spatial[0] / 2.0, spatial[1] / 2.0))
-            inv = torch.linalg.inv(mat).to(dev)
+            inv = trace.to_device(torch.linalg.inv(mat), dev, "augment.affine_h2d")
             mesh = coordinate_mesh(spatial, device=dev)
             xy1 = torch.stack([mesh[..., 0], mesh[..., 1], torch.ones_like(mesh[..., 0])], -1)
             src = xy1 @ inv.T
@@ -179,7 +183,7 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
             masks = map_coordinates(masks.float(), coords, 0).reshape(spatial).to(torch.int32)
             if aux is not None:
                 aux = map_coordinates(aux, coords, 0).reshape(spatial)
-            mat_d = mat.to(dev)
+            mat_d = trace.to_device(mat, dev, "augment.affine_h2d")
             pxy = torch.stack([pts[:, 0], pts[:, 1], torch.ones_like(pts[:, 0])], -1) @ mat_d.T
             pts = torch.stack([pxy[:, 0], pxy[:, 1], pts[:, 2]], -1)
             cxy = mat @ torch.stack([center[0], center[1], torch.tensor(1.0)])
@@ -194,6 +198,7 @@ def make_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float = 1.0,
         masks = masks[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1], o[2]:o[2] + crop[2]]
         if aux is not None:
             aux = aux[o[0]:o[0] + crop[0], o[1]:o[1] + crop[1], o[2]:o[2] + crop[2]]
+        trace.host_sync("augment.crop_origin_h2d", dev)
         pts = pts - torch.tensor(o, dtype=torch.float32, device=dev)
 
         # flips
@@ -251,17 +256,20 @@ def make_batch_augment(cfg: dict, dataset_mean: float = 0.0, dataset_std: float 
     """``fn(host_batch, gen) -> batch``: moves a stacked numpy host batch
     (``train/data.py::batch_iterator``) to ``device`` (the crop centre stays
     on the host, where the crop origin is computed), augments each sample
-    and stacks the results ``[B, W, H, D, C]``."""
+    and stacks the results ``[B, W, H, D, C]``; a call is the span
+    ``train.augment``."""
     aug = make_augment(cfg, intensity_ceiling=intensity_ceiling)
     norm = (float(dataset_mean), float(dataset_std))
 
+    @trace.spanned("train.augment")
     def batch_aug(host_batch: Dict[str, np.ndarray], gen: torch.Generator):
         b = host_batch["image"].shape[0]
         outs = []
         for i in range(b):
             sample = {k: torch.from_numpy(np.ascontiguousarray(v[i]))
                       for k, v in host_batch.items()}
-            sample = {k: v if k == "center" else v.to(device) for k, v in sample.items()}
+            sample = {k: v if k == "center" else trace.to_device(v, device, "augment.sample_h2d")
+                      for k, v in sample.items()}
             sample["norm"] = norm
             outs.append(aug(sample, gen))
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
