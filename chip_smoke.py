@@ -1317,7 +1317,7 @@ def run_device_pipeline(results: list, vol, n_expected: int, block_origin) -> No
     for d, m in ((dev, model), (torch.device("cpu"), model_from_checkpoint(ckpt, device="cpu"))):
         masks.append(make_device_pipeline(
             m, tuple(block.shape), crop=DEVICE_PIPELINE_CPU_CROP, vector_scale=scale,
-            device=d)(block.to(d), mean, std).cpu().numpy())
+            device=d)(block.to(d), mean, std).numpy())
     n_cpu, n_card, min_iou = _iou_match(masks[1], masks[0])
     print(f"device pipeline card vs cpu on the block at {block_origin}: {n_card} vs {n_cpu} "
           f"instances, min IoU {min_iou:.4f}", flush=True)
@@ -1439,7 +1439,7 @@ def run_slice(results: list):
           f"rounds x {per_round}")
     _need(0.8 * n_expected <= n_instances <= n_expected + 4,
           f"n_instances {n_instances} outside [0.8*{n_expected}, {n_expected}+4]")
-    return ckpt, model, volume, inst.cpu(), reserved, run
+    return ckpt, model, volume, inst, reserved, run
 
 
 def check_against_cpu(ckpt, model, volume, min_instances: int = 1) -> None:
@@ -1467,7 +1467,7 @@ def check_against_cpu(ckpt, model, volume, min_instances: int = 1) -> None:
             vector_scale=tuple(ckpt["cfg"]["SKOOTS"]["VECTOR_SCALING"]),
             embed_iterations=10, embed_compact_div=16, cc_rounds=24,
             cc_propagates_per_round=192, cc_jumps_per_round=0, device=dev)
-        masks.append(run(block.to(dev), mean, std).cpu().numpy())
+        masks.append(run(block.to(dev), mean, std).numpy())
     card, cpu = masks
     ids = [i for i in np.unique(cpu) if i]
     ious = []
@@ -1940,8 +1940,9 @@ def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
     _need(0.8 * n_expected <= n_instances <= n_expected + 4,
           f"thrifty n_instances {n_instances} outside [0.8*{n_expected}, {n_expected}+4]")
     # phase 2 alone, where the per-voxel term peaks: the CC and the 16-bit
-    # compaction on the mask of the thrifty instances, over that mask
-    fg = (labels > 0).to(torch.uint8)
+    # compaction on the mask of the thrifty instances (on the host), over
+    # that mask on the card
+    fg = (labels > 0).to(torch.uint8).to(dev)
     cc = make_label_components_stepped(VOLUME, rounds_per_dispatch=1,
                                        propagates_per_round=192, jumps_per_round=0)
     torch.cuda.synchronize()
@@ -1985,10 +1986,9 @@ def run_thrifty(results: list, ckpt, model, volume, chunked, chunked_peak,
           f"{res['over_segmentation_rate']:.4f} under-seg "
           f"{res['under_segmentation_rate']:.4f} in {dt:.3f} s", flush=True)
     _need(res["f1@50"] >= 0.95, f"thrifty vs chunked F1@0.5 {res['f1@50']} < 0.95")
-    pred = labels.cpu()
     for fn in ("mask_iou", "mask_dice", "mask_soft_cldice"):
         card = getattr(metrics, fn)(chunked, labels, device=dev).cpu()
-        cpu = getattr(metrics, fn)(chunked, pred, device="cpu")
+        cpu = getattr(metrics, fn)(chunked, labels, device="cpu")
         err = float((card - cpu).abs().max()) if card.numel() else 0.0
         tol = 1e-5 if fn == "mask_soft_cldice" else 0.0
         print(f"validate {fn}: card vs cpu {tuple(card.shape)} max |d| {err:.3g} "
@@ -3272,7 +3272,6 @@ def run_cc_variants(results: list, ckpt, model, volume, chunked, chunked_run,
         finally:
             os.environ.pop("SKOOTS_CC_IMPL", None)
         inst, counts, dt = _drive(f"cc [{tag}]", lambda: run(volume, mean, std), results)
-        inst = inst.cpu()
         same = ref is None or torch.equal(inst, ref)
         print(f"cc [{tag}]: engine {run.last_cc_impl} (sparse CC: "
               f"{json.dumps(run.last_sparse_cc)}, capacity {cc_n_max} points, "
@@ -3320,7 +3319,7 @@ def run_cc_variants(results: list, ckpt, model, volume, chunked, chunked_run,
             os.environ.pop("SKOOTS_CC_IMPL", None)
         tag = f"thrifty [SKOOTS_CC_IMPL={env or 'unset'}]"
         inst, counts, _ = _drive(tag, lambda: run(vol_u8, mean, std), results)
-        masks.append(widen_u16(inst).cpu())
+        masks.append(widen_u16(inst))
         print(f"{tag}: phases {json.dumps(run.last_phase_s)}, {run.last_cc_rounds} CC "
               f"rounds, {run.last_count} components", flush=True)
         _need(counts["propagate"] == run.last_cc_rounds * per_round > 0,

@@ -6,7 +6,7 @@ pipeline ``make_device_pipeline`` (:40-174), ``make_chunked_pipeline``
 :177-245) and its wrapper ``segment_volume_chunked`` (:512), and the
 device-thrifty variant ``make_thrifty_pipeline`` (:518-728):
 
-    volume [X, Y, Z] -> instance labels [X, Y, Z] int32, on the device
+    volume [X, Y, Z] -> instance labels [X, Y, Z] int32
 
 1. forward: normalise, reflect-pad by the overlap, run the model over a
    static tile grid; per tile, gate vectors and skeleton by ``prob > thr``,
@@ -26,6 +26,11 @@ PyTorch runs eagerly, so where the JAX package chunks jitted dispatches the
 port simply loops; phase timings synchronise the device at the phase ends.
 Each ``run()`` is the root span ``seg.block`` of ``utils/trace.py``, its
 phases, forward tiles and allocator releases spans inside it.
+
+On a card the instance mask comes back in page-locked host memory, whole:
+each X-slab of it is copied on a stream of its own as soon as the last
+assign tile that writes into it has been issued (:class:`_HostMask`), so
+the copies overlap the tiles that remain.
 """
 
 from __future__ import annotations
@@ -193,6 +198,66 @@ def _assign_plan(volume_shape, assign_crop, vector_scale, n, decay,
     return a_crop, a_origins, compact_assign
 
 
+def mask_slabs(origins, crop, x: int):
+    """The X-slabs of the assignment's output in the order they become
+    final: ``[(after, x0, x1)]``, slab ``[x0, x1)`` written by no tile after
+    index ``after`` of ``origins`` (tiles of extent ``crop``, in their
+    order; later tiles overwrite earlier ones where they overlap). The
+    slabs cover ``[0, x)``; a slab no tile writes has ``after`` -1."""
+    last = np.full(x, -1)
+    for i, o in enumerate(origins):
+        last[o[0]:o[0] + crop[0]] = i
+    cuts = [0, *(np.flatnonzero(np.diff(last)) + 1).tolist(), x]
+    return sorted(((int(last[a]), a, b) for a, b in zip(cuts, cuts[1:])),
+                  key=lambda s: s[0])
+
+
+class _HostMask:
+    """The instance mask's way to the host. On a card: a page-locked host
+    mask of the device mask's shape and dtype, allocated per call (the
+    caching host allocator reuses freed blocks, and a mask a caller keeps is
+    never written again); after the assign tile of index ``i`` has been
+    issued, :meth:`tile_done` copies each slab of :func:`mask_slabs` made
+    final by it on the copy stream, behind an event of the compute stream,
+    counted under ``mask_d2h`` as ``overlapped`` while tiles remain, else
+    ``tail``; :meth:`result` waits for the last copy (the span
+    ``seg.mask_d2h``, a ``host_sync`` at ``mask.d2h_wait``) and returns the
+    host mask. Elsewhere the device mask itself, with nothing recorded."""
+
+    def __init__(self, inst, slabs, n_tiles, stream):
+        self.inst, self.slabs, self.n_tiles, self.stream = inst, slabs, n_tiles, stream
+        self.next = 0
+        self.host = (torch.empty(inst.shape, dtype=inst.dtype, pin_memory=True)
+                     if stream is not None else inst)
+
+    def tile_done(self, i: int) -> None:
+        if self.stream is None:
+            return
+        compute = torch.cuda.current_stream(self.inst.device)
+        while self.next < len(self.slabs) and self.slabs[self.next][0] <= i:
+            _, x0, x1 = self.slabs[self.next]
+            self.next += 1
+            self.stream.wait_event(compute.record_event())
+            with torch.cuda.stream(self.stream):
+                self.host[x0:x1].copy_(self.inst[x0:x1], non_blocking=True)
+            trace.count("mask_d2h", "overlapped" if i < self.n_tiles - 1 else "tail")
+
+    def result(self) -> torch.Tensor:
+        if self.stream is not None:
+            with trace.span("seg.mask_d2h"):
+                trace.host_sync("mask.d2h_wait", self.inst.device)
+                self.stream.record_event().synchronize()
+        return self.host
+
+
+def _host_mask_factory(origins, crop, volume_shape, device):
+    """``start(inst) -> _HostMask`` for one pipeline: the slab plan of its
+    assign grid made once, and on a card the copy stream."""
+    slabs = mask_slabs(origins, crop, volume_shape[0])
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    return lambda inst: _HostMask(inst, slabs, len(origins), stream)
+
+
 def _dense_assign(vtile, fg, labels, o, volume_shape, vector_scale, n, decay,
                   exit_fraction, exit_cycle, compact_div):
     """Assignment of one tile by the dense walk (every voxel walks), the
@@ -265,7 +330,9 @@ def make_device_pipeline(
     Build ``run(volume, mean, std) -> int32 instance labels [X, Y, Z]`` on
     ``device`` (by default the first CUDA card; asking for CUDA without one
     raises) for one volume shape; ``model`` is the port's
-    ``SpatialEmbedding`` on that device. As JAX's:
+    ``SpatialEmbedding`` on that device. On a card the labels come back in
+    pinned host memory, complete (:class:`_HostMask`); elsewhere on
+    ``device``. As JAX's:
 
     1. the crop is clamped to the volume rounded down to a multiple of 4,
        the overlap to a quarter of the crop; the volume is normalised and
@@ -295,6 +362,7 @@ def make_device_pipeline(
     cc = _stepped_labeller((x, y, z), 1, 26, cc_propagates_per_round,
                            cc_jumps_per_round, 0)
     a_origins = crop_origins((x, y, z), crop, (0, 0, 0))
+    host_mask = _host_mask_factory(a_origins, crop, volume_shape, device)
 
     @torch.no_grad()
     @trace.spanned("seg.block", root=True)
@@ -312,13 +380,16 @@ def make_device_pipeline(
 
         with phase("3-assign"):
             inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
-            for o in a_origins:
+            landing = host_mask(inst)
+            for i, o in enumerate(a_origins):
                 sl = tuple(slice(oo, oo + c) for oo, c in zip(o, crop))
                 inst[sl] = _dense_assign(
                     vec_full[sl].float(), (skel_full[sl] >> 1) > 0, labels, o,
                     (x, y, z), vector_scale, embed_iterations, 1.0,
                     embed_exit_fraction, embed_exit_cycle, embed_compact_div)
-        return inst
+                landing.tile_done(i)
+            mask = landing.result()
+        return mask
 
     run.last_phase_s = {}
     run.last_cc_rounds = None
@@ -356,7 +427,9 @@ def make_chunked_pipeline(
     """Build ``run(volume, mean, std) -> int32 instance labels [X, Y, Z]``
     (on ``device``, by default the first CUDA card; asking for CUDA without
     one raises) for one volume shape; ``model`` is the port's
-    ``SpatialEmbedding`` on that device.
+    ``SpatialEmbedding`` on that device. On a card the labels come back in
+    pinned host memory, complete, each X-slab copied while the assign tiles
+    after it run (:class:`_HostMask`); elsewhere on ``device``.
 
     On a card the allocator's cache is released at the start and after
     phases 1 and 2 (:func:`_release_cache`), as the thrifty pipeline's.
@@ -390,6 +463,7 @@ def make_chunked_pipeline(
     a_crop, a_origins, compact_assign = _assign_plan(
         volume_shape, assign_crop or crop, vector_scale, embed_iterations,
         embed_decay, embed_compact_div and semantic_gate, device)
+    host_mask = _host_mask_factory(a_origins, a_crop, volume_shape, device)
 
     @torch.no_grad()
     @trace.spanned("seg.block", root=True)
@@ -422,18 +496,21 @@ def make_chunked_pipeline(
 
         with phase("3-assign"):
             inst = torch.zeros((x, y, z), dtype=torch.int32, device=device)
-            for o in a_origins:
+            landing = host_mask(inst)
+            for i, o in enumerate(a_origins):
                 sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
                 vtile = vec_full[sl].float()
                 fg = (skel_full[sl] >> 1) > 0
                 if compact_assign is not None:
                     inst[sl] = compact_assign(vtile, fg, labels, o)
-                    continue
-                inst[sl] = _dense_assign(
-                    vtile, fg if semantic_gate else None, labels, o, (x, y, z),
-                    vector_scale, embed_iterations, embed_decay,
-                    embed_exit_fraction, embed_exit_cycle, embed_compact_div)
-        return inst
+                else:
+                    inst[sl] = _dense_assign(
+                        vtile, fg if semantic_gate else None, labels, o, (x, y, z),
+                        vector_scale, embed_iterations, embed_decay,
+                        embed_exit_fraction, embed_exit_cycle, embed_compact_div)
+                landing.tile_done(i)
+            mask = landing.result()
+        return mask
 
     run.last_phase_s = {}
     run.last_cc_impl = None
@@ -446,7 +523,8 @@ def make_chunked_pipeline(
 
 def segment_volume_chunked(model, volume, mean, std, **kwargs):
     """One call of :func:`make_chunked_pipeline` built for ``volume``'s
-    shape (``kwargs`` are its knobs, ``device`` among them)."""
+    shape (``kwargs`` are its knobs, ``device`` among them): on a card the
+    labels in pinned host memory."""
     run = make_chunked_pipeline(model, tuple(volume.shape), **kwargs)
     return run(volume, mean, std)
 
@@ -506,7 +584,8 @@ def make_thrifty_pipeline(
     signature parity, as :func:`make_chunked_pipeline`'s is: eager PyTorch has no
     compiled dispatch to chunk. Returns ``run(volume, mean,
     std) -> instance labels [X, Y, Z]``, already numbered 1..N: uint16 when
-    N < 2^16 (:func:`widen_u16` widens it), else int32.
+    N < 2^16 (:func:`widen_u16` widens it), else int32; on a card in pinned
+    host memory, complete, as :func:`make_chunked_pipeline`'s.
     ``run.last_count`` holds N, ``run.last_phase_s`` the phase split,
     ``run.last_cc_rounds`` / ``run.last_cc_converged`` the CC telemetry and
     ``run.tile_plan`` the forward's tiles in phase 1 and phase 3.
@@ -525,6 +604,7 @@ def make_thrifty_pipeline(
         volume_shape, assign_crop or crop, vector_scale, embed_iterations,
         embed_decay, embed_compact_div and semantic_gate, device)
     lo = tuple(p[0] for p in pads)
+    host_mask = _host_mask_factory(a_origins, a_crop, volume_shape, device)
 
     def forward(tile, mean, std):
         return model(((widen_u16(tile).float() - mean) / std)[None, ..., None])[0]
@@ -572,7 +652,8 @@ def make_thrifty_pipeline(
 
         with phase("3-assign"):
             inst = torch.zeros((x, y, z), dtype=labels.dtype, device=device)
-            for o in a_origins:
+            landing = host_mask(inst)
+            for i, o in enumerate(a_origins):
                 sl = tuple(slice(oo, oo + c) for oo, c in zip(o, a_crop))
                 out = forward(vol[tuple(slice(oo + p, oo + p + c)
                                         for oo, p, c in zip(o, lo, a_crop))],
@@ -583,12 +664,14 @@ def make_thrifty_pipeline(
                 fg = prob > sem_thr
                 if compact_assign is not None:
                     inst[sl] = compact_assign(vtile, fg, labels, o)
-                    continue
-                inst[sl] = _dense_assign(
-                    vtile, fg if semantic_gate else None, labels, o, (x, y, z),
-                    vector_scale, embed_iterations, embed_decay,
-                    embed_exit_fraction, embed_exit_cycle, embed_compact_div)
-        return inst.view(torch.uint16) if inst.dtype == torch.int16 else inst
+                else:
+                    inst[sl] = _dense_assign(
+                        vtile, fg if semantic_gate else None, labels, o, (x, y, z),
+                        vector_scale, embed_iterations, embed_decay,
+                        embed_exit_fraction, embed_exit_cycle, embed_compact_div)
+                landing.tile_done(i)
+            mask = landing.result()
+        return mask.view(torch.uint16) if mask.dtype == torch.int16 else mask
 
     run.last_phase_s = {}
     run.last_count = None

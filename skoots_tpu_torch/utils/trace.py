@@ -27,7 +27,9 @@ Spans and counters of the program:
 
 * ``seg.block`` (root), ``seg.forward`` / ``seg.cc`` / ``seg.assign`` (the
   phases of ``run.last_phase_s``), ``seg.tile`` (a forward tile),
-  ``seg.release_cache``: the device pipelines (``infer/device_pipeline.py``);
+  ``seg.release_cache``, ``seg.mask_d2h`` (the wait for the instance mask's
+  last slab to land in pinned host memory): the device pipelines
+  (``infer/device_pipeline.py``);
 * ``sharded.fwd`` / ``.cc`` / ``.assign`` and ``perslice.assign`` /
   ``.stitch``: the phases of the sharded run and the per-slice mode;
 * ``train.step`` (root) with ``train.forward``, ``train.backward`` and
@@ -39,7 +41,10 @@ Spans and counters of the program:
   ``nonzero`` or boolean index, a copy from the host to the card, an
   ``empty_cache``. Counted only where a card is involved (no count on the
   CPU). Sites end in what waits: ``.synchronize`` and ``.empty_cache``
-  wait for the whole card, the rest for the stream.
+  wait for the whole card, the rest for the stream;
+* ``mask_d2h``, by site: each slab copy of the device pipelines' instance
+  mask to the host, ``overlapped`` while assign tiles remain to be issued,
+  else ``tail``. Counted only on a card.
 """
 
 from __future__ import annotations

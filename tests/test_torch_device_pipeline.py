@@ -236,7 +236,8 @@ def test_device_pipeline_defaults_to_the_card():
 @pytest.mark.cuda
 def test_cuda_device_pipeline_matches_cpu():
     """On the card (the CC's propagate kernel launched, the plain
-    propagation barred): the pointwise model's instances equal the CPU's."""
+    propagation barred): the pointwise model's instances equal the CPU's,
+    handed back in pinned host memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
     from skoots_tpu_torch.kernels import propagate as prop_mod
@@ -252,4 +253,4 @@ def test_cuda_device_pipeline_matches_cpu():
         got = run(img, 41.8, 20.4)
     finally:
         prop_mod.propagate_ref = saved
-    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert got.device.type == "cpu" and got.is_pinned() and torch.equal(got, want)

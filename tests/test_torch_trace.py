@@ -184,7 +184,7 @@ def _tile_model(tile):
     """A stand-in forward: five channels a voxel from the tile itself."""
     t = tile[0, ..., 0]
     fg = (t > t.mean()).float()
-    vec = torch.zeros(t.shape + (3,))
+    vec = torch.zeros(t.shape + (3,), device=t.device)
     return torch.cat([vec, fg[..., None], fg[..., None]], -1)[None]
 
 
@@ -215,6 +215,32 @@ def test_pipelines_record_their_spans_on_the_cpu(fresh, factory):
     n = len(fresh.spans)
     run(img, 0.0, 1.0)
     assert len(fresh.spans) == n
+
+
+@pytest.mark.parametrize("shape, crop, want", [
+    # the seg cells' assign grid: 24 tiles, X-rows of 12
+    ((512, 512, 512), (256, 256, 96), [(11, 0, 256), (23, 256, 512)]),
+    # the last X origin clamped to 172: [172, 256) is rewritten by row 2
+    ((300, 64, 40), (128, 64, 16), [(2, 0, 128), (5, 128, 172), (8, 172, 300)]),
+    # one tile
+    ((40, 40, 40), (40, 40, 40), [(0, 0, 40)]),
+    # split along Z alone, its last origin clamped
+    ((32, 32, 100), (32, 32, 24), [(4, 0, 32)]),
+])
+def test_mask_slabs_are_final_after_the_last_tile_that_writes_them(shape, crop, want):
+    """The slab plan of an assign grid: the slabs cover X in order, and each
+    voxel's slab is copied only after the last tile that writes it, and
+    right after it."""
+    from skoots_tpu_torch.ops.cropper import crop_origins
+
+    origins = crop_origins(shape, crop)
+    slabs = dp.mask_slabs(origins, crop, shape[0])
+    assert slabs == want
+    assert [a for _, a, _ in slabs] == [0] + [b for _, _, b in slabs[:-1]]
+    assert slabs[-1][2] == shape[0]
+    for after, x0, x1 in slabs:
+        for x in range(x0, x1):
+            assert after == max(i for i, o in enumerate(origins) if o[0] <= x < o[0] + crop[0])
 
 
 def _train_parts(device, steps=2):
@@ -380,8 +406,9 @@ def _syncs_by_place(fn, monkeypatch):
     runs by the place that made each, the waits torch reports by the
     place that issued each, the stack of a wait outside the port by its
     place). The sync debug mode reports the waits for the stream; a
-    whole-card ``synchronize`` or ``empty_cache`` is taken at its call, with
-    the mode off inside it (torch 2.11 reports neither)."""
+    whole-card ``synchronize``, an ``empty_cache`` or an event's
+    ``synchronize`` is taken at its call, with the mode off inside it (torch
+    2.11 reports none of them)."""
     counted = collections.defaultdict(list)
     waits = collections.Counter()
     outside = {}
@@ -390,10 +417,10 @@ def _syncs_by_place(fn, monkeypatch):
     def count(self, name, site):
         n = len(self.counts)
         real_count(self, name, site)
-        if len(self.counts) > n:
+        if name == "host_sync" and len(self.counts) > n:
             counted[_place()].append(site)
 
-    def whole_card(real):
+    def taken_at_call(real):
         def call(*args, **kwargs):
             waits[_place() or ("?", 0)] += 1
             torch.cuda.set_sync_debug_mode(0)
@@ -416,8 +443,9 @@ def _syncs_by_place(fn, monkeypatch):
     with monkeypatch.context() as m, warnings.catch_warnings():
         m.setattr(trace.Tracer, "count", count)
         m.setattr(trace, "count", trace.TRACER.count)
-        m.setattr(torch.cuda, "synchronize", whole_card(torch.cuda.synchronize))
-        m.setattr(torch.cuda, "empty_cache", whole_card(torch.cuda.empty_cache))
+        m.setattr(torch.cuda, "synchronize", taken_at_call(torch.cuda.synchronize))
+        m.setattr(torch.cuda, "empty_cache", taken_at_call(torch.cuda.empty_cache))
+        m.setattr(torch.cuda.Event, "synchronize", taken_at_call(torch.cuda.Event.synchronize))
         # the first switch to "warn" in a process reports a wait of its own
         warnings.simplefilter("ignore")
         torch.cuda.set_sync_debug_mode("warn")
@@ -452,7 +480,8 @@ def _assert_site_by_site(counted, waits, outside, counters):
 def test_host_syncs_match_the_sync_debug_mode_over_a_block(fresh, card, monkeypatch):
     """One block of the chunked pipeline with a tiny UNeXT on the card,
     recorded: every wait torch reports is a counted site, site by site;
-    four phase-clock synchronises and three releases a block."""
+    four phase-clock synchronises, three releases and one wait for the
+    mask's copy to the host a block."""
     from skoots_tpu_torch.models import init_model
 
     cfg = merge_from_dict(get_cfg_defaults(), {"MODEL": TINY_MODEL})
@@ -470,7 +499,35 @@ def test_host_syncs_match_the_sync_debug_mode_over_a_block(fresh, card, monkeypa
     assert tot["spans"]["seg.release_cache"]["n"] == 3
     assert tot["counters"]["host_sync"]["phase_clock.synchronize"] == 4
     assert tot["counters"]["host_sync"]["release_cache.empty_cache"] == 3
+    assert tot["counters"]["host_sync"]["mask.d2h_wait"] == 1
     _assert_site_by_site(*found, tot["counters"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factory", ["make_chunked_pipeline", "make_thrifty_pipeline",
+                                     "make_device_pipeline"])
+def test_pipelines_land_the_mask_in_pinned_host_memory_on_the_card(fresh, card, factory):
+    """A block of two assign X-rows, its last Z origin clamped, on the card:
+    the mask comes back on the host, pinned, equal to the CPU's, in two
+    slabs (one copied while the second row's tiles run, one after them)
+    and one wait."""
+    img, _, _ = make_tubes(shape=(64, 32, 40), n_tubes=3, radius=3, seed=5)
+    kw = dict(crop=(32, 32, 16), overlap=(0, 0, 0))
+    if factory != "make_device_pipeline":
+        kw["assign_crop"] = (32, 32, 16)
+    want = getattr(dp, factory)(_tile_model, img.shape, device="cpu", **kw)(img, 0.0, 1.0)
+    run = getattr(dp, factory)(_tile_model, img.shape, device=card, **kw)
+    assert run.tile_plan["assign"] == 6  # X origins 0, 32; Z 0, 16, 24
+    run(img, 0.0, 1.0)  # warm
+    trace.reset()
+    with trace.recording():
+        got = run(img, 0.0, 1.0)
+    assert got.device.type == "cpu" and got.is_pinned()
+    assert got.dtype == want.dtype and torch.equal(got, want) and want.any()
+    tot = trace.totals()
+    assert tot["counters"]["mask_d2h"] == {"overlapped": 1, "tail": 1}
+    assert tot["counters"]["host_sync"]["mask.d2h_wait"] == 1
+    assert tot["spans"]["seg.mask_d2h"]["n"] == 1
 
 
 @pytest.mark.cuda
